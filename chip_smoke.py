@@ -6,16 +6,28 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. float32 numerics: TF32 off for matmuls and cuDNN;
-  3. build: every kernel of the render path, from csrc/, with nvcc;
-  4. kernel against plain: the fused-MLP kernel against fused_mlp_plain on
-     the card at the render path's shapes, a ragged N, bf16, both
+  3. build: every kernel in csrc/, one nvcc process each, all at once;
+  4. kernel K1 against plain: the fused-MLP kernel against fused_mlp_plain
+     on the card at the mip render path's shapes, a ragged N, bf16, both
      last_relu settings; max error beside its tolerance, CUDA-event times;
-  5. slice: the shipped nuScenes_depth_6cams model at full width with a
-     seeded init renders 2 held-out views of the synthetic scene through
+  4b. kernel K2 against plain: the hash-grid row gather against
+     table[idx] at the zip path's shapes (the nerf and prop_mlp_1 tables
+     at chunk 8192), a ragged N, C in {2, 8}, the TPU kernel's shape, the
+     edge rows 0 and T-1; exact equality, CUDA-event times and GB/s;
+  5. mip slice: the shipped nuScenes_depth_6cams model at full width with
+     a seeded init renders 2 held-out views of the synthetic scene through
      make_eval_render_fn / render_image (chunk 4096); the outputs must be
-     finite with acc in [0, 1], the kernel must have been launched, and one
-     chunk must agree with a model sharing the weights whose MLP stacks
-     run the plain PyTorch version.
+     finite with acc in [0, 1], K1 must have been launched, and one chunk
+     must agree with a model sharing the weights whose MLP stacks run the
+     plain PyTorch version;
+  6. zip slice: the shipped waymo_zipnerf model (hash encoder) at full
+     width with a seeded init renders the same 2 views through
+     make_zip_eval_render_fn / render_image (chunk 8192); the outputs must
+     be finite with acc in [0, 1] and semantic rows summing to acc, K2
+     must have been launched 30 times a chunk, one chunk must agree with a
+     model whose gathers run gather_rows_plain and differ from a render
+     with the tables zeroed; one chunk is broken down under
+     torch.profiler.
 The last line is {"ok": true, "device": {...}}; without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -36,6 +48,16 @@ ROWS = 4096 * 128          # one chunk of rays x 128 samples
 F32_TOL = (1e-4, 1e-4)
 BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
 RENDER_TOL = 1e-3          # rgb/acc absolute, distance relative
+# The zip render with kernel K2 against plain gathers: a gather copies
+# bits, so the two agree exactly unless an op downstream is
+# nondeterministic; expected 0.
+ZIP_RENDER_TOL = 1e-6
+# Hash tables drawn in +-1 instead of the +-1e-4 init: the features then
+# sit at O(1), as a trained table's do, so density and colour depend on
+# every gathered row and a wrong gather would move the render (at +-1e-4
+# it would not; the zeroed-table check below shows the difference).
+ZIP_TABLE_SCALE = 1.0
+TABLES_MATTER = 1e-3       # min rgb change when the tables are zeroed
 
 
 class SmokeFailure(RuntimeError):
@@ -111,6 +133,232 @@ def kernel_case(torch, fused_mlp, fused_mlp_plain, name, n, d, n_layers,
   return dict(err=err, ms=k_ms, plain_ms=p_ms)
 
 
+def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
+  """K2 against table[idx] on the card: exact equality (a gather copies
+  bits), the edge rows 0 and rows-1, and CUDA-event times in turns."""
+  gen = torch.Generator(device="cuda").manual_seed(rows * 9 + c)
+  table = torch.randn(rows, c, generator=gen, device="cuda")
+  idx = torch.randint(0, rows, (n_idx,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+  idx[0], idx[-1] = 0, rows - 1
+  if n_idx % 8 == 0:
+    idx = idx.reshape(-1, 8)   # [points, 8 corners], as the encoder calls it
+  got = hash_ops.gather_rows(table, idx)
+  want = hash_ops.gather_rows_plain(table, idx)
+  torch.cuda.synchronize()
+  flat = got.reshape(-1, c)
+  equal = torch.equal(got, want)
+  edges = torch.equal(flat[0], table[0]) and torch.equal(flat[-1], table[-1])
+  err = float((got - want).abs().max())
+  p1 = time_ms(torch, lambda: hash_ops.gather_rows_plain(table, idx), iters)
+  k1 = time_ms(torch, lambda: hash_ops.gather_rows(table, idx), iters)
+  k2 = time_ms(torch, lambda: hash_ops.gather_rows(table, idx), iters)
+  p2 = time_ms(torch, lambda: hash_ops.gather_rows_plain(table, idx), iters)
+  k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+  useful = n_idx * (4 + 2 * 4 * c)   # index read, row read, row write
+  log(f"  {name}: T={rows} C={c} N={n_idx}: equal={equal} edges={edges} "
+      f"max_abs_err={err:.1e} kernel {k_ms:.3f} ms ({useful / k_ms / 1e6:.0f}"
+      f" GB/s) plain {p_ms:.3f} ms ({useful / p_ms / 1e6:.0f} GB/s) "
+      f"[{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]")
+  check(equal, f"{name}: K2 disagrees with table[idx] (max abs err {err})")
+  check(edges, f"{name}: K2 got the edge rows 0 / T-1 wrong")
+  del table, idx, got, want, flat
+  torch.cuda.empty_cache()
+  return dict(err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def profile_chunk(torch, render_fn, rays):
+  """Device time of one render chunk under torch.profiler, by kernel
+  name (K2, cuBLAS GEMMs) and by the labelled calls hash_encode (the
+  index and weight math around K2) and max_dilate, with the device idle
+  share against the host clock. Returns the breakdown in ms."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile, record_function
+  from snerf_tpu_torch.models import hashgrid
+  from snerf_tpu_torch.ops import stepfun
+
+  def labelled(fn, label):
+    def wrapped(*args, **kwargs):
+      with record_function(label):
+        return fn(*args, **kwargs)
+    return wrapped
+
+  orig = hashgrid.hash_encode, stepfun.max_dilate
+  hashgrid.hash_encode = labelled(orig[0], "hash_encode")
+  stepfun.max_dilate = labelled(orig[1], "max_dilate")
+  try:
+    render_fn(rays)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      render_fn(rays)
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+  finally:
+    hashgrid.hash_encode, stepfun.max_dilate = orig
+
+  def under(e, label):
+    while e is not None:
+      if e.name == label:
+        return True
+      e = e.cpu_parent
+    return False
+
+  def kind(name):
+    if "gather_rows_kernel" in name:
+      return "K2 gather"
+    if "gemm" in name.lower():
+      return "matmul (cuBLAS)"
+    return None
+
+  events = prof.events()
+  device = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+  out = {"K2 gather": 0.0, "matmul (cuBLAS)": 0.0,
+         "hash index/weight math": 0.0, "max_dilate": 0.0}
+  by_name = {}
+  for e in device:
+    ms = e.time_range.elapsed_us() / 1e3
+    by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    if kind(e.name):
+      out[kind(e.name)] += ms
+  for e in events:
+    if e.device_type != DeviceType.CPU or not e.kernels:
+      continue
+    for k in e.kernels:
+      if kind(k.name):
+        continue
+      if under(e, "max_dilate"):
+        out["max_dilate"] += k.duration / 1e3
+      elif under(e, "hash_encode"):
+        out["hash index/weight math"] += k.duration / 1e3
+  busy = sum(by_name.values())
+  if busy == 0:
+    log(f"  profile of one chunk: wall {wall_ms:.2f} ms; torch.profiler "
+        "recorded no device time, breakdown not measured")
+    return None
+  out["other (elementwise, sort, reductions)"] = busy - sum(out.values())
+  out.update(device_total=busy, wall=wall_ms,
+             idle_share=1.0 - busy / wall_ms)
+  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+  log(f"  profile of one chunk: wall {wall_ms:.2f} ms, device busy "
+      f"{busy:.2f} ms, idle share {100 * out['idle_share']:.1f}%")
+  for k in list(out)[:5]:
+    log(f"    {k}: {out[k]:.3f} ms ({100 * out[k] / busy:.1f}%)")
+  for name, ms in top:
+    log(f"    kernel {name[:90]}: {ms:.3f} ms")
+  return out
+
+
+def zip_slice(torch, scene, views, view_rays, card):
+  """Phase 6: the waymo_zipnerf hash arm at full width. Returns the K2
+  launch count of the render."""
+  from snerf_tpu_torch.config import load_config, zip_model_config
+  from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import hash_ops
+  from snerf_tpu_torch.ops.fused_mlp import fused_mlp
+  from snerf_tpu_torch.train.renderer import (make_zip_eval_render_fn,
+                                              render_image)
+  from snerf_tpu_torch.utils.weights import zip_init_
+
+  cfg = load_config(["--config",
+                     os.path.join(ROOT, "configs", "waymo_zipnerf")])
+  zcfg = zip_model_config(cfg)
+  t0 = time.perf_counter()
+  model = zip_init_(ZipNerfModel(zcfg, device="cuda"), seed=0,
+                    table_scale=ZIP_TABLE_SCALE).eval()
+  plain_model = ZipNerfModel(zcfg, gather_fn=hash_ops.gather_rows_plain,
+                             device="cuda").eval()
+  plain_model.load_state_dict(model.state_dict())
+  rows = [m.encoder.spec.total_rows for m in model.mlps()]
+  log(f"[zip slice] waymo_zipnerf: encoder {zcfg.encoder_type}, samples "
+      f"{zcfg.num_prop_samples}/{zcfg.num_nerf_samples} x {zcfg.sample_n}, "
+      f"{zcfg.grid_num_levels} levels, log2 {zcfg.grid_log2_hashmap_size}, "
+      f"tables {rows} rows, grids {zcfg.prop_grid_resolutions}/"
+      f"{zcfg.nerf_grid_resolution}, semantic {zcfg.class_num}, chunk "
+      f"{cfg.chunk}; init {time.perf_counter() - t0:.1f} s")
+  H, W = scene.images.shape[1:3]
+  render_fn = make_zip_eval_render_fn(model)
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  hash_ops.gather_rows.launches = 0
+  fused_mlp.launches = 0
+  outs, secs = [], []
+  for i in views:
+    rays = view_rays(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs.append(render_image(render_fn, rays, chunk=cfg.chunk))
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+  launches = hash_ops.gather_rows.launches
+  k1_launches = fused_mlp.launches
+  peak = torch.cuda.max_memory_allocated()
+  n_chunks = len(views) * -(-H * W // cfg.chunk)
+  for i, out, s in zip(views, outs, secs):
+    rgb, acc, sem = out["rgb"], out["acc"], out["semantic"]
+    log(f"  view {i}: {H}x{W} in {s:.3f} s = {H * W / s:.1f} rays/s; "
+        f"rgb mean {float(rgb.mean()):.4f} std {float(rgb.std()):.4f} acc "
+        f"[{float(acc.min()):.6f}, {float(acc.max()):.6f}] distance mean "
+        f"{float(out['distance'].mean()):.4f}")
+    check(tuple(rgb.shape) == (H, W, 3), f"rgb shape {tuple(rgb.shape)}")
+    check(tuple(sem.shape) == (H, W, zcfg.class_num),
+          f"semantic shape {tuple(sem.shape)}")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          f"view {i}: non-finite output")
+    check(float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-5,
+          f"view {i}: acc outside [0, 1]: {float(acc.min())} "
+          f"{float(acc.max())}")
+    # softmax rows composited with weights that sum to acc
+    sem_err = float((sem.sum(-1) - acc[..., 0]).abs().max())
+    check(sem_err <= 1e-4, f"view {i}: semantic rows do not sum to acc "
+          f"({sem_err})")
+  log(f"  K2 launches on the zip path: {launches} (30 per chunk x "
+      f"{n_chunks} chunks expected); K1 launches {k1_launches}")
+  check(launches == 30 * n_chunks,
+        f"the zip path launched K2 {launches} times, expected "
+        f"{30 * n_chunks}")
+  log(f"  zip render rate (2nd view, steady): {H * W / secs[-1]:.1f} "
+      f"rays/s; peak device memory {peak / 2**30:.3f} GiB "
+      f"(torch.cuda.max_memory_allocated, both models' tables included) "
+      f"| {card}")
+
+  chunk_rays = view_rays(views[0]).reshape(-1).map(lambda t: t[:cfg.chunk])
+  got = render_fn(chunk_rays)
+  want = make_zip_eval_render_fn(plain_model)(chunk_rays)
+  errs = {k: float((got[k] - want[k]).abs().max())
+          for k in ("rgb", "acc", "semantic")}
+  errs["distance_rel"] = float(((got["distance"] - want["distance"]).abs()
+                                / want["distance"].abs()).max())
+  log(f"  one chunk, K2 model vs plain-gather model: {errs} "
+      f"(tol {ZIP_RENDER_TOL})")
+  check(all(v <= ZIP_RENDER_TOL for v in errs.values()),
+        f"K2 render disagrees with the plain-gather model: {errs}")
+  plain_fn = make_zip_eval_render_fn(plain_model)
+  p1 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
+  k1 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
+  k2 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
+  p2 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
+  log(f"  one chunk end to end: K2 model {(k1 + k2) / 2:.2f} ms, "
+      f"plain-gather model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
+      f"{p1:.2f}/{p2:.2f}]")
+  with torch.no_grad():
+    for mlp in plain_model.mlps():
+      mlp.encoder.embeddings.zero_()
+  flat = plain_fn(chunk_rays)
+  moved = float((got["rgb"] - flat["rgb"]).abs().max())
+  log(f"  the same chunk with the tables zeroed: rgb moves by {moved:.4f} "
+      f"(must exceed {TABLES_MATTER})")
+  check(moved > TABLES_MATTER, "zeroing the hash tables does not change "
+        f"the render (max rgb change {moved})")
+  del plain_model, flat, want
+  torch.cuda.empty_cache()
+  profile_chunk(torch, render_fn, chunk_rays)
+  return launches
+
+
 def main() -> int:
   import torch
 
@@ -122,7 +370,9 @@ def main() -> int:
   from snerf_tpu_torch.config import load_config, model_config
   from snerf_tpu_torch.data.raygen import rays_for_image
   from snerf_tpu_torch.data.synthetic import make_synthetic_scene
+  from snerf_tpu_torch.models.hashgrid import make_grid_spec
   from snerf_tpu_torch.models.mipnerf import MipNerfModel
+  from snerf_tpu_torch.ops import _cuda, hash_ops
   from snerf_tpu_torch.ops import fused_mlp as fm
   from snerf_tpu_torch.train.renderer import make_eval_render_fn, render_image
   from snerf_tpu_torch.utils.weights import glorot_init_
@@ -139,12 +389,16 @@ def main() -> int:
 
   # 3. build
   t0 = time.perf_counter()
-  so, build_log = fm.build()
-  log(f"[build] {os.path.relpath(so, ROOT)} in "
-      f"{time.perf_counter() - t0:.1f} s")
-  for line in build_log.splitlines():
-    if "registers" in line or "spill" in line or "error" in line:
-      log(f"  {line.strip()}")
+  built = _cuda.build_all()
+  libs = ", ".join(os.path.relpath(so, ROOT) for so, _ in built.values())
+  log(f"[build] {libs} in {time.perf_counter() - t0:.1f} s (parallel)")
+  check(set(built) >= {"fused_mlp", "hash_gather"},
+        f"kernel sources missing: {sorted(built)}")
+  for so, build_log in built.values():
+    for line in build_log.splitlines():
+      if ("registers" in line or "spill" in line or "error" in line
+          or "Compiling entry" in line):
+        log(f"  {line.strip()}")
 
   # 4. kernel against plain
   log("[kernel] fused_mlp (CUDA) against fused_mlp_plain")
@@ -160,6 +414,20 @@ def main() -> int:
   ]
   results = {c[0]: kernel_case(torch, fm.fused_mlp, fm.fused_mlp_plain, *c)
              for c in cases}
+
+  # 4b. kernel K2 against plain, at the zip path's shapes (chunk 8192)
+  log("[kernel] hash_gather (CUDA) against table[idx]")
+  nerf_rows = make_grid_spec(10, 4, 16, 8192, 21).total_rows
+  prop1_rows = make_grid_spec(10, 1, 16, 2048, 21).total_rows
+  gcases = [
+      ("nerf level", nerf_rows, 4, 8192 * 32 * 7 * 8, 10),
+      ("prop_mlp_1 level", prop1_rows, 1, 8192 * 64 * 7 * 8, 10),
+      ("ragged", nerf_rows, 4, 777 * 8, 20),
+      ("C=2", 1 << 21, 2, 1 << 22, 20),
+      ("C=8", 1 << 21, 8, 1 << 22, 20),
+      ("TPU kernel shape", 4992, 8, 1 << 17, 50),
+  ]
+  gresults = {c[0]: gather_case(torch, hash_ops, *c) for c in gcases}
 
   # 5. slice
   cfg = load_config(["--config",
@@ -230,6 +498,12 @@ def main() -> int:
   check(all(v <= RENDER_TOL for v in errs.values()),
         f"kernel render disagrees with the plain stack: {errs}")
 
+  del model, plain_model, outs, got, want, chunk_rays
+  torch.cuda.empty_cache()
+
+  # 6. zip slice
+  k2_launches = zip_slice(torch, scene, views, view_rays, card)
+
   main_case = results["fine trunk_1..4"]
   f32_err = max(results[c[0]]["err"] for c in cases if c[4] == f32)
   log(json.dumps({"kernels": [{
@@ -237,7 +511,14 @@ def main() -> int:
       "source": "snerf_tpu_torch/csrc/fused_mlp.cu",
       "replaces": "snerf_tpu/ops/pallas/fused_mlp.py:66",
       "launches": launches, "max_abs_err": f32_err,
-      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}]}))
+      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, {
+      "name": "hash_gather", "route": "cuda",
+      "source": "snerf_tpu_torch/csrc/hash_gather.cu",
+      "replaces": "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
+      "launches": k2_launches,
+      "max_abs_err": max(r["err"] for r in gresults.values()),
+      "ms": gresults["nerf level"]["ms"],
+      "plain_ms": gresults["nerf level"]["plain_ms"]}]}))
   log(card)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

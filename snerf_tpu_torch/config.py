@@ -1,14 +1,16 @@
-"""Config adapter: the port's model config from the shared flag dataclass.
+"""Config adapters: the port's model configs from the shared flag
+dataclass.
 
 `snerf_tpu.config.Config` is plain Python and imports no JAX, so the port
-reuses it. Its own `Config.model_config()` imports jax, hence this
-counterpart.
+reuses it. Its own `Config.model_config()` and `Config.zip_model_config()`
+import jax, hence these counterparts.
 """
 
 from __future__ import annotations
 
 from snerf_tpu.config import Config, load_config  # noqa: F401 (re-export)
 from snerf_tpu_torch.models.mipnerf import MipNerfConfig
+from snerf_tpu_torch.models.zipnerf import ZipNerfConfig
 
 _T_TRANSFORM = {0: "log", 1: "disparity", 2: "linear"}
 
@@ -29,3 +31,30 @@ def model_config(cfg: Config) -> MipNerfConfig:
       hidden_layer=cfg.hidden_layer, rgb_layer=cfg.rgb_layer,
       proposal_hidden_layer=cfg.proposal_hidden_layer,
       semantic=cfg.semantic, semantic_class_num=cfg.semantic_class_num)
+
+
+def zip_model_config(cfg: Config) -> ZipNerfConfig:
+  """ZipNerfConfig for the eval path, as `Config.zip_model_config()`
+  builds it, with float32 activations (render.py forces them for eval).
+  An encoder other than hash or a GLO embedding raises."""
+  return ZipNerfConfig(
+      num_prop_samples=tuple(cfg.zip_num_prop_samples),
+      num_nerf_samples=cfg.zip_num_nerf_samples,
+      num_levels=len(tuple(cfg.zip_num_prop_samples)) + 1,
+      num_glo_features=cfg.zip_glo_features,
+      encoder_type=cfg.zip_encoder,
+      density_hidden_width=cfg.zip_density_hidden_width,
+      # None = the encoder-aware auto rule of Config.zip_model_config
+      density_zero_init=(cfg.zip_encoder.startswith("cp")
+                         if cfg.zip_density_zero_init is None
+                         else bool(cfg.zip_density_zero_init)),
+      scene_scale=cfg.zip_scene_scale,
+      density_bias=cfg.zip_density_bias,
+      sample_n=cfg.zip_sample_n,
+      grid_num_levels=cfg.zip_grid_num_levels,
+      grid_log2_hashmap_size=cfg.zip_log2_hashmap_size,
+      bottleneck_width=cfg.zip_bottleneck_width,
+      net_width_viewdirs=min(cfg.zip_bottleneck_width, 256),
+      prop_grid_resolutions=tuple(cfg.zip_prop_grid_resolutions),
+      nerf_grid_resolution=cfg.zip_nerf_grid_resolution,
+      use_semantic=cfg.semantic, class_num=cfg.semantic_class_num)

@@ -4,74 +4,25 @@ snerf_tpu/ops/pallas/fused_mlp.py), forward only.
 `fused_mlp` launches the hand-written Hopper kernel in
 `snerf_tpu_torch/csrc/fused_mlp.cu` for CUDA tensors and runs
 `fused_mlp_plain`, the same computation as a plain PyTorch loop, for CPU
-tensors. The kernel is compiled with `nvcc` for sm_90a at first use into
-`build/kernels/` under the repository root and bound with ctypes.
+tensors. The kernel is built and loaded by `ops/_cuda.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "fused_mlp.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from snerf_tpu_torch.ops import _cuda
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2 ** 31 - 64  # the kernel indexes rows with int
 
-_lib_handle = None
 
-
-def _nvcc() -> str:
-  cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-  for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-    if cand and os.path.exists(cand):
-      return cand
-  raise RuntimeError("nvcc not found: the fused_mlp kernel needs the CUDA "
-                     "toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> tuple[Path, str]:
-  """Compile the kernel library if this source has not been built yet.
-
-  Returns (path of the shared library, the compiler's output: ptxas
-  registers, shared memory and spills; empty when it was built before).
-  """
-  src = _SRC.read_bytes()
-  digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-  so = BUILD_DIR / f"fused_mlp_{digest[:16]}.so"
-  if so.exists():
-    return so, ""
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-  proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                        capture_output=True, text=True)
-  if proc.returncode != 0:
-    raise RuntimeError(f"nvcc failed building {_SRC}:\n{proc.stderr}")
-  os.replace(tmp, so)
-  return so, proc.stdout + proc.stderr
-
-
-def _lib():
-  global _lib_handle
-  if _lib_handle is None:
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
-    lib.snerf_fused_mlp_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.snerf_fused_mlp_fwd.restype = ctypes.c_int
-    lib.snerf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.snerf_cuda_error_string.restype = ctypes.c_char_p
-    _lib_handle = lib
-  return _lib_handle
+def _bind(lib):
+  lib.snerf_fused_mlp_fwd.argtypes = (
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+  lib.snerf_fused_mlp_fwd.restype = ctypes.c_int
 
 
 def _check_shapes(x, w_stack, b_stack):
@@ -141,16 +92,14 @@ def fused_mlp(x, w_stack, b_stack, last_relu: bool = True):
     return out
   # the kernel writes the layers before the last through this scratch
   tmp = torch.empty_like(x) if n_layers > 1 else None
-  lib = _lib()
+  lib = _cuda.load("fused_mlp", _bind)
   err = lib.snerf_fused_mlp_fwd(
       x.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
       None if tmp is None else tmp.data_ptr(), n, d, n_layers,
       int(bool(last_relu)), _DTYPE_CODE[x.dtype],
       x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    msg = lib.snerf_cuda_error_string(err).decode()
-    raise RuntimeError(f"fused_mlp: kernel launch failed (CUDA error {err}: "
-                       f"{msg}) at N={n} D={d} L={n_layers} {x.dtype}")
+  _cuda.check_launch(lib, err,
+                     f"fused_mlp at N={n} D={d} L={n_layers} {x.dtype}")
   fused_mlp.launches += 1
   return out
 

@@ -1,7 +1,7 @@
 """Numerically-safe math helpers (counterpart of snerf_tpu/ops/math.py).
 
-Only what the eval render path needs: safe trig, safe sqrt, mse -> psnr
-and the inverse-CDF `bracket`.
+Only what the eval render paths need: safe trig, safe sqrt, mse -> psnr,
+`searchsorted`, `interp` and the inverse-CDF `bracket`.
 """
 
 from __future__ import annotations
@@ -38,6 +38,46 @@ def mse_to_psnr(mse: torch.Tensor) -> torch.Tensor:
   return -10.0 / math.log(10.0) * torch.log(mse)
 
 
+def searchsorted(a: torch.Tensor, v: torch.Tensor):
+  """Indices (idx_lo, idx_hi) bracketing each v in sorted a, per batch row.
+
+  a: [..., n] sorted; v: [..., m] (leading dims broadcast). idx = the
+  number of a-entries <= v (a right searchsorted, as the JAX dense mask
+  sum counts it), then idx_hi = clip(idx, 0, n-1) and idx_lo =
+  clip(idx-1, 0, n-1). The JAX version counts with a dense [n, m] mask
+  (no gathers, fast on a TPU); here a binary search, which the GPU has
+  natively.
+  """
+  lead = torch.broadcast_shapes(a.shape[:-1], v.shape[:-1])
+  a = a.expand(*lead, a.shape[-1]).contiguous()
+  v = v.expand(*lead, v.shape[-1]).contiguous()
+  idx = torch.searchsorted(a, v, right=True)
+  n = a.shape[-1]
+  return (idx - 1).clamp(0, n - 1), idx.clamp(0, n - 1)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor):
+  """Batched linear interpolation over the last axis (jnp.interp per row).
+
+  x: [..., m]; xp: [..., n] sorted; fp: [..., n]. Outside [xp[0], xp[-1]]
+  the result clamps to the end values; a zero-width bracket takes fp_lo
+  (the JAX nan_to_num(nan=0) of 0/0).
+  """
+  idx_lo, idx_hi = searchsorted(xp, x)
+  lead = idx_lo.shape[:-1]
+  xp = xp.expand(*lead, xp.shape[-1])
+  fp = fp.expand(*lead, fp.shape[-1])
+  xp_lo, xp_hi = torch.gather(xp, -1, idx_lo), torch.gather(xp, -1, idx_hi)
+  fp_lo, fp_hi = torch.gather(fp, -1, idx_lo), torch.gather(fp, -1, idx_hi)
+  t = torch.clamp(torch.nan_to_num((x - xp_lo) / (xp_hi - xp_lo), nan=0.0),
+                  0, 1)
+  return fp_lo + t * (fp_hi - fp_lo)
+
+
+def sorted_interp(x, xp, fp):
+  return interp(x, xp, fp)
+
+
 def bracket(cdf: torch.Tensor, u: torch.Tensor, arrays):
   """For each u, the bracketing (lo, hi) values of MONOTONE arrays
   aligned with the sorted cdf.
@@ -54,14 +94,9 @@ def bracket(cdf: torch.Tensor, u: torch.Tensor, arrays):
   a flat cdf included: the max of a non-decreasing array over a prefix
   is its last element, the min over the suffix its first.
   """
-  cdf = cdf.contiguous()
-  u = u.expand(*cdf.shape[:-1], u.shape[-1]).contiguous()
-  idx = torch.searchsorted(cdf, u, right=True)
-  n = cdf.shape[-1]
-  idx_hi = idx.clamp(0, n - 1)
-  idx_lo = (idx - 1).clamp(0, n - 1)
+  idx_lo, idx_hi = searchsorted(cdf, u)
   outs = []
   for arr in arrays:
-    arr = arr.expand(*u.shape[:-1], arr.shape[-1])
+    arr = arr.expand(*idx_lo.shape[:-1], arr.shape[-1])
     outs.append((torch.gather(arr, -1, idx_lo), torch.gather(arr, -1, idx_hi)))
   return outs

@@ -1,5 +1,5 @@
-"""Chunked full-image rendering (counterpart of
-snerf_tpu/train/renderer.py, single device).
+"""Chunked full-image rendering for the mip and zip models (counterpart
+of snerf_tpu/train/renderer.py, single device).
 
 The JAX module's single-dispatch `lax.scan` variant and its mesh
 sharding have no counterpart yet.
@@ -46,6 +46,27 @@ def make_eval_render_fn(model, white_bkgd: bool = False) -> RenderFn:
     with torch.inference_mode():
       fine = model(rays, white_bkgd=white_bkgd)[-1]
     out = {"rgb": fine["rgb"], "distance": fine["distance"][..., None],
+           "acc": fine["acc"][..., None]}
+    if fine.get("semantic") is not None:
+      out["semantic"] = fine["semantic"]
+    return out
+
+  return render_fn
+
+
+def make_zip_eval_render_fn(model) -> RenderFn:
+  """Deterministic zip-nerf render of the finest level under inference
+  mode (counterpart of `make_zip_param_render_fn`).
+
+  Returns Rays -> dict(rgb [N, 3], distance [N, 1] (the finest level's
+  depth), acc [N, 1], and semantic [N, C] when the model has a semantic
+  head).
+  """
+
+  def render_fn(rays: Rays) -> Dict[str, torch.Tensor]:
+    with torch.inference_mode():
+      fine = model(rays)[0][-1]
+    out = {"rgb": fine["rgb"], "distance": fine["depth"][..., None],
            "acc": fine["acc"][..., None]}
     if fine.get("semantic") is not None:
       out["semantic"] = fine["semantic"]

@@ -1,5 +1,6 @@
-"""The port runs where JAX is absent, and chip_smoke.py refuses to run
-without a CUDA card (each in a fresh interpreter)."""
+"""The port (the mip and zip render paths) runs where JAX is absent, and
+chip_smoke.py refuses to run without a CUDA card (each in a fresh
+interpreter)."""
 
 import os
 import shutil
@@ -36,6 +37,26 @@ assert out["rgb"].shape == (4, 4, 3), out["rgb"].shape
 assert all(bool(torch.isfinite(v).all()) for v in out.values())
 acc = out["acc"]
 assert float(acc.min()) >= 0 and float(acc.max()) <= 1 + 1e-6
+from snerf_tpu_torch.config import zip_model_config
+from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+from snerf_tpu_torch.train.renderer import make_zip_eval_render_fn
+from snerf_tpu_torch.utils.weights import zip_init_
+
+zcfg = load_config(["--config", "configs/waymo_zipnerf",
+                    "--zip_num_prop_samples", "(8, 8)",
+                    "--zip_num_nerf_samples", "8",
+                    "--zip_grid_num_levels", "4",
+                    "--zip_log2_hashmap_size", "12",
+                    "--zip_prop_grid_resolutions", "(64, 128)",
+                    "--zip_nerf_grid_resolution", "256",
+                    "--zip_bottleneck_width", "32"])
+zmodel = zip_init_(ZipNerfModel(zip_model_config(zcfg)), seed=0,
+                   table_scale=1.0)
+zout = render_image(make_zip_eval_render_fn(zmodel), rays, chunk=6)
+assert zout["rgb"].shape == (4, 4, 3), zout["rgb"].shape
+assert zout["semantic"].shape == (4, 4, 19), zout["semantic"].shape
+assert all(bool(torch.isfinite(v).all()) for v in zout.values())
+print("ZIP RENDERED", tuple(zout["rgb"].shape))
 jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "flax")
     or k.startswith("snerf_tpu.")))
@@ -54,6 +75,7 @@ def test_port_imports_and_renders_with_jax_blocked():
               PYTHONPATH=REPO)
   assert proc.returncode == 0, proc.stderr[-3000:]
   assert "RENDERED (4, 4, 3)" in proc.stdout
+  assert "ZIP RENDERED (4, 4, 3)" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
