@@ -27,7 +27,25 @@ Phases, each fatal on failure:
      must have been launched 30 times a chunk, one chunk must agree with a
      model whose gathers run gather_rows_plain and differ from a render
      with the tables zeroed; one chunk is broken down under
-     torch.profiler.
+     torch.profiler;
+  7a. K1's backward against plain: the dgrad, wgrad and reduce kernels
+     against fused_mlp_bwd_plain on the same saved layers at the train
+     step's shapes (fine trunk_1..4 and trunk_6..7 at 520,192 rows,
+     proposal trunk_1..3 at 524,288), a ragged N and no last ReLU; dx, dW,
+     db within a tolerance of max|plain|, two runs bit-identical, the
+     forward that keeps its layers bit-equal to the eval forward, CUDA-
+     event times and TFLOP/s in turns, each kernel alone against its
+     plain counterpart, and an autograd round trip through fused_mlp;
+  7b. train slice: the shipped nuScenes_depth_6cams training step at
+     full width (depth_conf off, lrate_delay 0) on the same synthetic
+     scene, N_rgb 4096, seeded: 2 warm-up and 24 timed steps (s/step,
+     rays/s, peak memory, K1 launches per step against the expected
+     counts), finite and falling loss, a torch.profiler breakdown of one
+     step, and one step against the same weights and draws with the
+     stacks' backward plain (every grad within STEP_BWD_TOL) and with
+     plain stacks (loss, metrics, every grad), and a non-zero pose grad.
+The kernels line lists fused_mlp and its three backward kernels with the
+train step's launch counts, and hash_gather with the zip render's.
 The last line is {"ok": true, "device": {...}}; without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -35,6 +53,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,6 +66,46 @@ ROWS = 4096 * 128          # one chunk of rays x 128 samples
 # (D = 1024) that drifts ~3e-5 on O(1) outputs.
 F32_TOL = (1e-4, 1e-4)
 BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
+# K1's backward against fused_mlp_bwd_plain, as a fraction of max|plain|
+# per tensor. The tensor cores' f32 accumulator truncates, so the error
+# grows with the MMAs an entry runs: dgrad 384 (D = 1024), wgrad 768 a
+# 2,048-row split of N, whose partials are then summed in IEEE f32. On an
+# H100 the sound kernels read at most 2.8e-5 (dx, fine trunk_1..4), a
+# control build that drops the small-term MMAs of 3xTF32 (plain 1xTF32)
+# 1.7e-4 to 6.2e-4 on every tensor (3.9e-4 on dx at L = 2): the limit
+# sits between.
+BWD_TOL = 1e-4
+# The train slice: warm-up and timed steps, and K1's launches per step:
+# forward, one for each uniform run (fine trunk_1..4 and trunk_6..7,
+# proposal trunk_1..3); dgrad, wgrad and reduce, one per layer of those
+# runs, 4 + 2 + 3 (every run's input carries grad, so layer 0 gets dgrad).
+TRAIN_WARMUP, TRAIN_STEPS = 2, 24
+K1_FWD_PER_STEP, K1_BWD_PER_STEP = 3, 9
+# One step of the kernel model against the same model whose stacks run
+# the kernel forward and fused_mlp_bwd_plain on its saved layers: the
+# same forward, so the grads differ only by the backward kernels.
+# Relative L2 error per tensor, model and poses: on an H100 the sound
+# kernels read 4.0e-5, the 1xTF32 control build 2.9e-4.
+STEP_BWD_TOL = 1e-4
+# One step against the plain-stack model on the same weights and draws.
+# Loss and metrics: relative, the kernels' ~3e-5 forward drift averages
+# out over 4,096 rays. Grads: relative L2 error per tensor. The plain
+# forward makes its own ReLU decisions, and one that flips (a
+# pre-activation within ~3e-5 of 0) moves a row of the grads below it
+# by O(its size), as phase 7a's unchecked comparison shows; flips are
+# sparse, so the L2 error of a model grad stays small (4.1e-4 and 1.1e-3
+# read). A pose grad is one image's 3 + 3 sums over its 4,096 rays,
+# which cancel: the plain forward alone (kernel backward or not) moved
+# them by 2.7e-4 to 1.6e-2 across three states read. This check catches
+# wiring (a wrong layer, mask or transpose is O(1)); the one above,
+# precision.
+# The loss components sum fewer and smaller terms: loss_proposal sums
+# max(0, w - w_outer)^2 / w over 127 fine weights of ~1e-3 each, so a
+# ~1e-6 change of a weight is ~1e-4 of it; they get 1e-3.
+STEP_LOSS_TOL = 1e-5
+STEP_METRIC_TOL = 1e-3
+STEP_GRAD_TOL = 1e-2
+STEP_POSE_TOL = 1e-1
 RENDER_TOL = 1e-3          # rgb/acc absolute, distance relative
 # The zip render with kernel K2 against plain gathers: a gather copies
 # bits, so the two agree exactly unless an op downstream is
@@ -131,6 +190,419 @@ def kernel_case(torch, fused_mlp, fused_mlp_plain, name, n, d, n_layers,
   del x, w, b, got, want, diff
   torch.cuda.empty_cache()
   return dict(err=err, ms=k_ms, plain_ms=p_ms)
+
+
+def _rel_errs(got, want):
+  """{name: (max abs err, max |plain|)} of matching tensors."""
+  return {k: (float((g.double() - w.double()).abs().max()),
+              float(w.double().abs().max()))
+          for k, g, w in zip(("dx", "dW", "db"), got, want)}
+
+
+def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
+  """K1's backward kernels against fused_mlp_bwd_plain on the same saved
+  activations and output gradient: dx, dW, db within BWD_TOL of
+  max|plain|, CUDA-event times in turns and TFLOP/s; the training
+  forward (layers kept) bit-equal to the eval call; then one autograd
+  round trip through fused_mlp against autograd through fused_mlp_plain.
+  """
+  gen = torch.Generator(device="cuda").manual_seed(n * 5 + d + n_layers)
+  dev = "cuda"
+  x = torch.randn(n, d, generator=gen, device=dev) * 0.5
+  limit = (6.0 / (2 * d)) ** 0.5
+  w = (torch.rand(n_layers, d, d, generator=gen, device=dev) * 2 - 1) * limit
+  b = (torch.rand(n_layers, 1, d, generator=gen, device=dev) * 2 - 1) * 0.1
+  g = torch.randn(n, d, generator=gen, device=dev)
+  with torch.no_grad():
+    out, kept = fm._launch_fwd(x, w, b, last_relu, keep=True)
+    bit_equal = torch.equal(out, fm.fused_mlp(x, w, b, last_relu))
+  saved = ([] if kept is None else list(kept.unbind(0))) + [out]
+  got = fm.fused_mlp_bwd(x, w, b, saved, g, last_relu)
+  want = fm.fused_mlp_bwd_plain(x, w, b, saved, g, last_relu)
+  again = fm.fused_mlp_bwd(x, w, b, saved, g, last_relu)
+  torch.cuda.synchronize()
+  deterministic = all(torch.equal(p, q) for p, q in zip(got, again))
+  errs = _rel_errs(got, want)
+  ok = all(e <= BWD_TOL * s + 1e-30 for e, s in errs.values())
+  finite = all(bool(torch.isfinite(t).all()) for t in got)
+  del got, want, again
+  p1 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                     last_relu), iters)
+  k1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g,
+                                               last_relu), iters)
+  k2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g,
+                                               last_relu), iters)
+  p2 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                     last_relu), iters)
+  k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+  flop = 4.0 * n * d * d * n_layers      # dgrad + wgrad, every layer
+  # The autograd round trip: autograd through fused_mlp against plain
+  # autograd (cuBLAS matmuls) that takes the kernel forward's ReLU
+  # decisions. Autograd through fused_mlp_plain makes its own decisions;
+  # its forward is ~3e-5 off the kernel's, so a pre-activation that close
+  # to 0 flips, and one flipped entry of the top layer moves a whole row
+  # of dx by O(its size): that comparison is printed, not checked.
+  masks = [a > 0 for a in saved]
+  del saved, kept, out
+  leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+  (fm.fused_mlp(*leaves, last_relu) * g).sum().backward()
+  got = [t.grad for t in leaves]
+
+  def plain_grads(relu):
+    px, pw, pb = (t.clone().requires_grad_() for t in (x, w, b))
+    h = px
+    for i in range(n_layers):
+      h = relu(i, h @ pw[i] + pb[i])
+    (h * g).sum().backward()
+    return [px.grad, pw.grad, pb.grad], h.detach()
+
+  def kernel_relu(i, z):
+    return z * masks[i] if i < n_layers - 1 or last_relu else z
+
+  def own_relu(i, z):
+    return torch.relu(z) if i < n_layers - 1 or last_relu else z
+
+  want, _ = plain_grads(kernel_relu)
+  trip = _rel_errs(got, want)
+  trip_ok = all(e <= BWD_TOL * s + 1e-30 for e, s in trip.values())
+  own, own_out = plain_grads(own_relu)
+  flips = int((masks[-1] != (own_out > 0)).sum()) if last_relu else 0
+  own_errs = _rel_errs(got, own)
+  del want, own, own_out, masks
+  fmt = lambda es: ", ".join(f"{k} {e:.2e} (max|plain| {s:.2e})"
+                             for k, (e, s) in es.items())
+  log(f"  {name}: N={n} D={d} L={n_layers} last_relu={last_relu}: "
+      f"{fmt(errs)} (tol {BWD_TOL} x max|plain|); kernels {k_ms:.3f} ms "
+      f"({flop / k_ms / 1e9:.1f} TFLOP/s) plain {p_ms:.3f} ms "
+      f"({flop / p_ms / 1e9:.1f} TFLOP/s) [{k1:.3f}/{k2:.3f} vs "
+      f"{p1:.3f}/{p2:.3f}]; forward keeping layers bit-equal to eval: "
+      f"{bit_equal}; two backward runs bit-equal: {deterministic}")
+  log(f"    autograd round trip vs plain autograd on the kernel's ReLU "
+      f"decisions: {fmt(trip)} (tol {BWD_TOL} x max|plain|); vs autograd "
+      f"through fused_mlp_plain (its own decisions, {flips} of the top "
+      f"layer's differ): {fmt(own_errs)} (not checked)")
+  check(finite, f"{name}: backward kernels gave non-finite grads")
+  check(bit_equal, f"{name}: the forward keeping its layers differs from "
+        "the eval forward")
+  check(deterministic, f"{name}: two identical backward runs differ")
+  check(ok, f"{name}: backward kernels disagree with plain: {errs}")
+  check(trip_ok, f"{name}: autograd through fused_mlp disagrees with "
+        f"plain autograd on the same ReLU decisions: {trip}")
+  del x, w, b, g, leaves, got
+  torch.cuda.empty_cache()
+  return dict(err=max(e / max(s, 1e-30) for e, s in errs.values()),
+              abs_err=max(e for e, _ in errs.values()), ms=k_ms,
+              plain_ms=p_ms)
+
+
+def bwd_kernel_times(torch, fm, n, d, iters):
+  """Each backward kernel alone at one fine-trunk layer against its plain
+  PyTorch counterpart: dgrad vs (dz @ w.T) * (mask > 0); wgrad plus its
+  reduce vs act.T @ dz and dz.sum(0); the reduce alone vs a sum over the
+  split axis. Max abs error and CUDA-event times in turns."""
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  dz = torch.randn(n, d, generator=gen, device="cuda")
+  act = torch.relu(torch.randn(n, d, generator=gen, device="cuda"))
+  w = (torch.rand(d, d, generator=gen, device="cuda") * 2 - 1) * 0.05
+  sm = torch.cuda.get_device_properties(0).multi_processor_count
+  rows, splits = fm.wgrad_splits(n, d, sm)
+  part_w = dz.new_empty(splits, d, d)
+  part_b = dz.new_empty(splits, d)
+  out = torch.empty_like(dz)
+  dw, db = dz.new_empty(d, d), dz.new_empty(d)
+
+  def dgrad():
+    return fm.fused_mlp_bwd_dgrad(dz, w, act, out)
+
+  def dgrad_plain():
+    return (dz @ w.t()) * (act > 0)
+
+  def wgrad():
+    fm.fused_mlp_bwd_wgrad(act, dz, part_w, part_b, rows)
+    fm.fused_mlp_bwd_reduce(part_w, part_b, dw, db)
+    return dw, db
+
+  def wgrad_plain():
+    return act.t() @ dz, dz.sum(0)
+
+  def reduce():
+    fm.fused_mlp_bwd_reduce(part_w, part_b, dw, db)
+
+  def reduce_plain():
+    return part_w.sum(0), part_b.sum(0)
+
+  res = {}
+  for name, kern, plain, flop in (
+      ("fused_mlp_bwd_dgrad", dgrad, dgrad_plain, 2.0 * n * d * d),
+      ("fused_mlp_bwd_wgrad", wgrad, wgrad_plain, 2.0 * n * d * d),
+      ("fused_mlp_bwd_reduce", reduce, reduce_plain, 0.0)):
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if name == "fused_mlp_bwd_reduce":
+      got, want = (dw, db), want
+    pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+    err = max(float((g - p).abs().max()) for g, p in pairs)
+    scale = max(float(p.abs().max()) for _, p in pairs)
+    p1 = time_ms(torch, plain, iters)
+    k1 = time_ms(torch, kern, iters)
+    k2 = time_ms(torch, kern, iters)
+    p2 = time_ms(torch, plain, iters)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    rate = (f" ({flop / k_ms / 1e9:.1f} vs {flop / p_ms / 1e9:.1f} TFLOP/s)"
+            if flop else "")
+    log(f"  {name} alone, N={n} D={d} (splits {splits} x {rows} rows): "
+        f"max_abs_err {err:.2e} (max|plain| {scale:.2e}); kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{rate} [{k1:.3f}/{k2:.3f} vs "
+        f"{p1:.3f}/{p2:.3f}]")
+    check(err <= BWD_TOL * scale, f"{name} disagrees with plain: {err}")
+    res[name] = dict(err=err, ms=k_ms, plain_ms=p_ms)
+  del dz, act, w, part_w, part_b, out, dw, db
+  torch.cuda.empty_cache()
+  return res
+
+
+def profile_step(torch, step_fn):
+  """Device time of one train step under torch.profiler, by kernel: K1
+  forward, dgrad, wgrad (+ its reduce), cuBLAS GEMMs, the optimizer
+  (kernels under Optimizer.step) and the rest (elementwise, sort,
+  reductions, copies); with the idle share against the host clock."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    step_fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+  def kind(name):
+    for key, label in (("fused_mlp_fwd_kernel", "K1 forward"),
+                       ("fused_mlp_bwd_dgrad", "K1 dgrad"),
+                       ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
+                       ("fused_mlp_bwd_reduce", "K1 wgrad + reduce")):
+      if key in name:
+        return label
+    if "gemm" in name.lower() or "gemv" in name.lower():
+      return "matmul (cuBLAS)"
+    return None
+
+  def in_optimizer(e):
+    while e is not None:
+      if e.name.startswith("Optimizer.step"):
+        return True
+      e = e.cpu_parent
+    return False
+
+  events = prof.events()
+  out = {k: 0.0 for k in ("K1 forward", "K1 dgrad", "K1 wgrad + reduce",
+                          "matmul (cuBLAS)", "optimizer (Adam)")}
+  by_name, busy = {}, 0.0
+  for e in events:
+    if e.device_type != DeviceType.CUDA or getattr(
+        e, "is_user_annotation", False):
+      continue
+    ms = e.time_range.elapsed_us() / 1e3
+    busy += ms
+    by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    if kind(e.name):
+      out[kind(e.name)] += ms
+  for e in events:
+    if e.device_type == DeviceType.CPU and e.kernels and in_optimizer(e):
+      out["optimizer (Adam)"] += sum(k.duration / 1e3 for k in e.kernels
+                                     if not kind(k.name))
+  if busy == 0:
+    log(f"  profile of one step: wall {wall_ms:.1f} ms; torch.profiler "
+        "recorded no device time, breakdown not measured")
+    return None
+  out["other (elementwise, sort, reductions, copies)"] = (
+      busy - sum(out.values()))
+  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
+  log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
+      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
+  for k in list(out)[:6]:
+    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
+  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    log(f"    kernel {name[:90]}: {ms:.2f} ms")
+  return out
+
+
+def _grad_errs(torch, a, b):
+  """{param: (relative L2 error, max abs err, max|plain|)} of two models'
+  grads, a against b (the plain one)."""
+  out = {}
+  pb = dict(b.named_parameters())
+  for name, p in a.named_parameters():
+    g, w = p.grad.double(), pb[name].grad.double()
+    out[name] = (float((g - w).norm() / w.norm().clamp_min(1e-30)),
+                 float((g - w).abs().max()), float(w.abs().max()))
+  return out
+
+
+def train_slice(torch, scene, card):
+  """Phase 7b: the nuScenes_depth_6cams training step at full width.
+  Returns the K1 launch counts of the timed steps."""
+  from snerf_tpu_torch.config import load_config, model_config, train_config
+  from snerf_tpu_torch.data.sampler import scene_to_device
+  from snerf_tpu_torch.models.mipnerf import MipNerfModel
+  from snerf_tpu_torch.models.posenet import LearnPose
+  from snerf_tpu_torch.ops import fused_mlp as fm
+  from snerf_tpu_torch.train import trainer
+
+  # depth_conf off: the confidence model and its VGG precompute are not
+  # ported. lrate_delay 0: the shipped 2,500-step warm-up starts at
+  # lr 5e-6, under which 26 steps would not move the loss measurably.
+  cfg = load_config(["--config",
+                     os.path.join(ROOT, "configs", "nuScenes_depth_6cams"),
+                     "--depth_conf", "False", "--lrate_delay", "0"])
+  mcfg, tcfg = model_config(cfg), train_config(cfg)
+  log(f"[train slice] nuScenes_depth_6cams with depth_conf OFF (not ported) "
+      f"and lrate_delay 0 (shipped 2500): N_rgb {tcfg.n_rgb}, hidden "
+      f"{mcfg.hidden_layer} rgb_layer {mcfg.rgb_layer} proposal "
+      f"{mcfg.proposal_hidden_layer}, samples {mcfg.num_samples} + "
+      f"{mcfg.num_fine_intervals}, {mcfg.ray_shape}, fn2, "
+      f"{mcfg.t_transform}, randomized {tcfg.randomized}, density_noise "
+      f"{mcfg.density_noise}, pose_refine {tcfg.pose_refine}, depth_loss "
+      f"{tcfg.depth_loss} (disparity {tcfg.disparity_depth}), "
+      f"proposal_loss {tcfg.proposal_loss}, lr {tcfg.lrate}; scene "
+      f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
+      f"{len(scene.i_train)} train views")
+  dev_scene = scene_to_device(scene, "cuda")
+  model, pose, state = trainer.create_train_state(
+      0, mcfg, tcfg, scene.num_images, device="cuda")
+  step = trainer.make_train_step(model, pose, tcfg, dev_scene,
+                                 scene.i_train, scene.near, scene.far)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  kernels = (fm.fused_mlp, fm.fused_mlp_bwd_dgrad, fm.fused_mlp_bwd_wgrad,
+             fm.fused_mlp_bwd_reduce)
+
+  for _ in range(TRAIN_WARMUP):
+    step(state, gen)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  for k in kernels:
+    k.launches = 0
+  losses = []
+  t0 = time.perf_counter()
+  for _ in range(TRAIN_STEPS):
+    losses.append(step(state, gen)["loss"])
+  torch.cuda.synchronize()
+  secs = (time.perf_counter() - t0) / TRAIN_STEPS
+  counts = {k.__name__: k.launches for k in kernels}
+  peak = torch.cuda.max_memory_allocated()
+  losses = [float(v) for v in losses]
+  first, last = (sum(losses[:10]) / 10, sum(losses[-10:]) / 10)
+  log(f"  {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: {secs:.4f} "
+      f"s/step = {tcfg.n_rgb / secs:.1f} rays/s; peak device memory "
+      f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated) | {card}")
+  log(f"  loss: first 10 mean {first:.5f}, last 10 mean {last:.5f}; "
+      f"{' '.join(f'{v:.4f}' for v in losses)}")
+  per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+  log(f"  K1 launches per step: {per_step} (expected forward "
+      f"{K1_FWD_PER_STEP}, dgrad / wgrad / reduce {K1_BWD_PER_STEP} each)")
+  check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+  check(last < first, f"the loss did not fall: first 10 {first}, last 10 "
+        f"{last}")
+  check(counts["fused_mlp"] == K1_FWD_PER_STEP * TRAIN_STEPS,
+        f"K1 forward launches {counts['fused_mlp']}")
+  for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
+               "fused_mlp_bwd_reduce"):
+    check(counts[name] == K1_BWD_PER_STEP * TRAIN_STEPS,
+          f"{name} launches {counts[name]}, expected "
+          f"{K1_BWD_PER_STEP * TRAIN_STEPS}")
+
+  prof = profile_step(torch, lambda: step(state, gen))
+
+  class KernelFwdPlainBwd(torch.autograd.Function):
+    """K1's forward kernel keeping its layers, fused_mlp_bwd_plain on
+    them backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, last_relu):
+      out, kept = fm._launch_fwd(x, w, b, last_relu, keep=True)
+      ctx.last_relu = bool(last_relu)
+      ctx.save_for_backward(x, w, b, out,
+                            *([] if kept is None else kept.unbind(0)))
+      return out
+
+    @staticmethod
+    def backward(ctx, g):
+      x, w, b, out, *layers = ctx.saved_tensors
+      return (*fm.fused_mlp_bwd_plain(x, w, b, [*layers, out],
+                                      g.contiguous(), ctx.last_relu), None)
+
+  def plain_bwd_stack(x, w, b, last_relu=True):
+    return KernelFwdPlainBwd.apply(x, w, b, last_relu)
+
+  # One step of this model against the same weights with the stacks'
+  # backward plain (same forward) and with plain stacks, on the same
+  # draws; fresh optimizers on every side.
+  models = {"kernel": (model, pose)}
+  for name, stack_fn in (("plain backward", plain_bwd_stack),
+                         ("plain stacks", fm.fused_mlp_plain)):
+    m = MipNerfModel(mcfg, stack_fn=stack_fn, device="cuda")
+    m.load_state_dict(model.state_dict())
+    p = LearnPose(scene.num_images, device="cuda")
+    p.load_state_dict(pose.state_dict())
+    models[name] = (m, p)
+  steps, metrics = {}, {}
+  draws = trainer.draw_step(mcfg, tcfg, dev_scene["images"], scene.i_train,
+                            gen)
+  for name, (m, p) in models.items():
+    st = trainer.TrainState(
+        step=state.step, model=m, optimizer=trainer.adam(m.parameters(), 0),
+        pose_model=p, pose_optimizer=trainer.adam(p.parameters(), 0))
+    steps[name] = (trainer.make_train_step(m, p, tcfg, dev_scene,
+                                           scene.i_train, scene.near,
+                                           scene.far), st)
+    metrics[name] = steps[name][0](st, draws=draws)
+  img = int(draws.img_idx[0])
+  pose_grad = float(pose.r.grad[img].abs().max() + pose.t.grad[img].abs()
+                    .max())
+  for name, model_tol, pose_tol in (
+      ("plain backward", STEP_BWD_TOL, STEP_BWD_TOL),
+      ("plain stacks", STEP_GRAD_TOL, STEP_POSE_TOL)):
+    got, want = metrics["kernel"], metrics[name]
+    rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+           for k in want}
+    errs = _grad_errs(torch, model, models[name][0])
+    pose_errs = _grad_errs(torch, pose, models[name][1])
+    worst = max(errs.items(), key=lambda kv: kv[1][0])
+    worst_pose = max(v[0] for v in pose_errs.values())
+    log(f"  one step, kernel model vs {name}: loss rel err "
+        f"{rel['loss']:.2e} (tol {STEP_LOSS_TOL}), every metric's {rel} "
+        f"(tol {STEP_METRIC_TOL}); grads: worst relative L2 "
+        f"{worst[1][0]:.2e} at {worst[0]} (max abs {worst[1][1]:.2e}, "
+        f"max|plain| {worst[1][2]:.2e}; tol {model_tol}), pose "
+        f"{worst_pose:.2e} (tol {pose_tol})")
+    check(rel["loss"] <= STEP_LOSS_TOL,
+          f"kernel step's loss disagrees with {name}: {rel}")
+    check(all(v <= STEP_METRIC_TOL for v in rel.values()),
+          f"kernel step's metrics disagree with {name}: {rel}")
+    check(worst[1][0] <= model_tol,
+          f"kernel step's grads disagree with {name}: {worst}")
+    check(worst_pose <= pose_tol,
+          f"kernel step's pose grads disagree with {name}: {pose_errs}")
+  log(f"  pose grad of the sampled image {img}: {pose_grad:.3e}")
+  check(pose_grad > 0, "the sampled image's pose got no gradient")
+
+  # end to end in turns: plain-stack step, kernel step, kernel, plain
+  times = {}
+  for name, key in (("plain", "plain stacks"), ("kernel", "kernel"),
+                    ("kernel2", "kernel"), ("plain2", "plain stacks")):
+    fn, st = steps[key]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(st, draws=draws)
+    torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t0
+  log(f"  one step end to end: kernel model {times['kernel']:.4f} / "
+      f"{times['kernel2']:.4f} s, plain-stack model {times['plain']:.4f} / "
+      f"{times['plain2']:.4f} s")
+  del model, pose, state, models, steps, m, p, st
+  torch.cuda.empty_cache()
+  return counts, prof
 
 
 def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
@@ -429,6 +901,20 @@ def main() -> int:
   ]
   gresults = {c[0]: gather_case(torch, hash_ops, *c) for c in gcases}
 
+  # 7a. K1's backward against plain, at the train path's shapes
+  log("[kernel] fused_mlp backward (CUDA dgrad, wgrad, reduce) against "
+      "fused_mlp_bwd_plain")
+  fine_rows = 4096 * 127   # the train step's fine level: 127 intervals
+  bcases = [
+      ("fine trunk_1..4", fine_rows, 1024, 4, True, 2),
+      ("fine trunk_6..7", fine_rows, 1024, 2, True, 2),
+      ("proposal trunk_1..3", ROWS, 256, 3, True, 3),
+      ("ragged", fine_rows + 5, 1024, 2, False, 2),
+      ("ragged small", 777, 256, 3, False, 5),
+  ]
+  bresults = {c[0]: bwd_case(torch, fm, *c) for c in bcases}
+  kresults = bwd_kernel_times(torch, fm, fine_rows, 1024, 5)
+
   # 5. slice
   cfg = load_config(["--config",
                      os.path.join(ROOT, "configs", "nuScenes_depth_6cams")])
@@ -504,14 +990,28 @@ def main() -> int:
   # 6. zip slice
   k2_launches = zip_slice(torch, scene, views, view_rays, card)
 
+  # 7b. train slice
+  train_counts, _ = train_slice(torch, scene, card)
+  log(f"  K1 launches: mip render {launches}, train {train_counts}")
+
   main_case = results["fine trunk_1..4"]
   f32_err = max(results[c[0]]["err"] for c in cases if c[4] == f32)
+  # the backward kernels stand for K1's custom VJP, _fused_bwd: XLA
+  # einsums there, with no pallas_call of its own
+  bwd = [{
+      "name": name, "route": "cuda",
+      "source": "snerf_tpu_torch/csrc/fused_mlp.cu",
+      "replaces": "snerf_tpu/ops/pallas/fused_mlp.py:104",
+      "launches": train_counts[name], "max_abs_err": kresults[name]["err"],
+      "ms": kresults[name]["ms"], "plain_ms": kresults[name]["plain_ms"]}
+         for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
+                      "fused_mlp_bwd_reduce")]
   log(json.dumps({"kernels": [{
       "name": "fused_mlp", "route": "cuda",
       "source": "snerf_tpu_torch/csrc/fused_mlp.cu",
       "replaces": "snerf_tpu/ops/pallas/fused_mlp.py:66",
-      "launches": launches, "max_abs_err": f32_err,
-      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, {
+      "launches": train_counts["fused_mlp"], "max_abs_err": f32_err,
+      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, *bwd, {
       "name": "hash_gather", "route": "cuda",
       "source": "snerf_tpu_torch/csrc/hash_gather.cu",
       "replaces": "snerf_tpu/ops/pallas/hash_gather_dense.py:63",

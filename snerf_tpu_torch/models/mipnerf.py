@@ -1,16 +1,18 @@
-"""S-NeRF mip model, eval mode (counterpart of
-snerf_tpu/models/mipnerf.py `MipNerfModel.__call__` with rng=None).
+"""S-NeRF mip model (counterpart of snerf_tpu/models/mipnerf.py
+`MipNerfModel.__call__`): the deterministic eval forward and the
+randomized training forward.
 
-Not ported yet: the randomized training branch (stratified jitter,
-resample draws and density noise enter through the injected `rand`
-arguments of ops/sampling.py in a later trainer), the fn1 warp
+The JAX model draws its stratified jitter, resample positions and density
+noise from a PRNG key; JAX and torch streams cannot agree, so here the
+draws enter as a `MipDraws` (made by `make_draws` from a torch.Generator,
+or injected, as the tests inject JAX's own). Not ported yet: the fn1 warp
 (warp_fn=0), the appearance embedding and a bf16 compute dtype.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -25,17 +27,19 @@ from snerf_tpu_torch.ops.rays import Rays
 @dataclasses.dataclass(frozen=True)
 class MipNerfConfig:
   """Static model hyperparameters; the fields and defaults of the JAX
-  MipNerfConfig that the eval path reads."""
+  MipNerfConfig that the eval and training forwards read."""
   num_samples: int = 128          # N_samples (coarse)
   num_fine: int = 128             # N_fine
   num_levels: int = 2
   resample_padding: float = 0.01
+  stop_level_grad: bool = True
   use_viewdirs: bool = True
   lindisp: bool = False
   ray_shape: str = "cylinder"
   min_deg_point: int = 0
   max_deg_point: int = 16
   deg_view: int = 4
+  density_noise: float = 1.0
   density_bias: float = -1.0
   rgb_padding: float = 0.001
   disable_integration: bool = False
@@ -53,6 +57,47 @@ class MipNerfConfig:
   def __post_init__(self):
     if not self.no_warp_sample and self.warp_fn == 0:
       raise NotImplementedError("warp_fn=0 (fn1) is not ported yet")
+
+  @property
+  def num_fine_intervals(self) -> int:
+    """Intervals of every level after the first, as the JAX model counts
+    them: the no-warp branch redraws num_samples + 1 points, the warp
+    branch num_fine points, i.e. num_fine - 1 intervals."""
+    return self.num_fine - 1 if not self.no_warp_sample else self.num_samples
+
+
+@dataclasses.dataclass
+class MipDraws:
+  """The random draws of one randomized forward over a batch of rays.
+
+  stratified: uniform [0, 1) [*batch, num_samples + 1], the first level's
+    jitter (the JAX keys[0]);
+  resample: uniform [0, 1) [*batch, num_fine_intervals + 1], the inverse-CDF
+    positions of every later level (keys[1]; JAX scales its draw into
+    each stratum, the port scales this one the same way);
+  noise: per level, standard normals [*batch, intervals of the level]
+    (keys[2] folded with the level), or None when density_noise is 0.
+  """
+  stratified: torch.Tensor
+  resample: torch.Tensor
+  noise: Optional[List[torch.Tensor]] = None
+
+
+def make_draws(config: MipNerfConfig, batch_shape,
+               generator: torch.Generator) -> MipDraws:
+  """Draw a MipDraws from `generator`, on the generator's device (the
+  model's)."""
+  batch_shape = tuple(batch_shape)
+  n_fine = config.num_fine_intervals
+  kw = dict(generator=generator, device=generator.device)
+  noise = None
+  if config.density_noise > 0:
+    noise = [torch.randn(*batch_shape, config.num_samples if i == 0
+                         else n_fine, **kw)
+             for i in range(config.num_levels)]
+  return MipDraws(
+      stratified=torch.rand(*batch_shape, config.num_samples + 1, **kw),
+      resample=torch.rand(*batch_shape, n_fine + 1, **kw), noise=noise)
 
 
 class MipNerfModel(nn.Module):
@@ -93,20 +138,24 @@ class MipNerfModel(nn.Module):
     return mip.integrated_pos_enc(means, covs, c.min_deg_point,
                                   c.max_deg_point, method=c.ipe_method)
 
-  def forward(self, rays: Rays, white_bkgd: bool = False):
-    """Render a ray batch deterministically (the JAX rng=None mode).
+  def forward(self, rays: Rays, white_bkgd: bool = False,
+              draws: Optional[MipDraws] = None):
+    """Render a ray batch. draws=None is the deterministic eval forward
+    (the JAX rng=None); a MipDraws makes it the randomized training one.
 
     Returns a list of per-level dicts with keys
     rgb/distance/acc/semantic/s_vals/weights (coarse level: rgb=None).
     """
     c = self.config
     batch_shape = rays.origins.shape[:-1]
+    randomized = draws is not None
     ret = []
     level_vals = weights = None
     for i_level in range(c.num_levels):
       if i_level == 0:
-        s_vals = sampling.stratified_sample(batch_shape, c.num_samples,
-                                            rays.device)
+        s_vals = sampling.stratified_sample(
+            batch_shape, c.num_samples, rays.device,
+            rand=draws.stratified if randomized else None)
         if not c.no_warp_sample:
           level_vals = s_vals
         elif c.lindisp:
@@ -114,12 +163,11 @@ class MipNerfModel(nn.Module):
         else:
           level_vals = coord.s_to_t_linear(s_vals, rays.near, rays.far)
       else:
-        # Interval counts as the JAX model: the no-warp branch redraws
-        # num_samples + 1 points, the warp branch num_fine points, i.e.
-        # num_fine - 1 intervals.
-        n_fine = c.num_fine - 1 if not c.no_warp_sample else c.num_samples
         level_vals = sampling.resample_from_weights(
-            level_vals, weights, n_fine, resample_padding=c.resample_padding)
+            level_vals, weights, c.num_fine_intervals,
+            resample_padding=c.resample_padding,
+            rand=draws.resample if randomized else None,
+            stop_grad=c.stop_level_grad)
 
       samples_enc = self._encode_samples(level_vals, rays)
 
@@ -134,6 +182,8 @@ class MipNerfModel(nn.Module):
         raw_rgb, raw_density, raw_semantic = self.mlp(samples_enc, condition)
 
       raw_density = raw_density[..., 0]
+      if randomized and c.density_noise > 0:
+        raw_density = raw_density + c.density_noise * draws.noise[i_level]
       rgb = None
       if raw_rgb is not None:
         rgb = torch.sigmoid(raw_rgb) * (1 + 2 * c.rgb_padding) - c.rgb_padding

@@ -39,7 +39,9 @@ class DenseBlock(nn.Module):
 
 
 def _stacked(blocks):
-  """[L, D, D] ([in, out]) weights and [L, 1, D] biases of uniform blocks."""
+  """[L, D, D] ([in, out]) weights and [L, 1, D] biases of uniform blocks.
+  Differentiable: under autograd the stack's grads flow back through
+  torch.stack and .t() to each block's weight and bias."""
   w = torch.stack([b.linear.weight.t() for b in blocks]).contiguous()
   bias = torch.stack([b.linear.bias[None] for b in blocks]).contiguous()
   return w, bias

@@ -1,12 +1,14 @@
 """Numerically-safe math helpers (counterpart of snerf_tpu/ops/math.py).
 
-Only what the eval render paths need: safe trig, safe sqrt, mse -> psnr,
-`searchsorted`, `interp` and the inverse-CDF `bracket`.
+What the eval render paths and the mip trainer need: safe trig, safe
+sqrt, mse -> psnr, `searchsorted`, `interp`, the inverse-CDF `bracket`,
+the learning-rate schedule and gradient clipping.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 
@@ -36,6 +38,49 @@ def safe_sqrt(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def mse_to_psnr(mse: torch.Tensor) -> torch.Tensor:
   return -10.0 / math.log(10.0) * torch.log(mse)
+
+
+def log_lerp(t, v0: float, v1: float) -> torch.Tensor:
+  """Interpolate log-linearly from v0 (t=0) to v1 (t=1), t clamped to
+  [0, 1]; float32, as the JAX version computes it."""
+  if v0 <= 0 or v1 <= 0:
+    raise ValueError(f"Interpolants {v0} and {v1} must be positive.")
+  lv0, lv1 = math.log(v0), math.log(v1)
+  t = torch.as_tensor(t, dtype=torch.float32)
+  return torch.exp(torch.clamp(t, 0.0, 1.0) * (lv1 - lv0) + lv0)
+
+
+def learning_rate_decay(step, lr_init: float, lr_final: float,
+                        max_steps: int, lr_delay_steps: int = 0,
+                        lr_delay_mult: float = 1.0) -> torch.Tensor:
+  """Log-lerp decay with an optional warmup window (the reference
+  schedule); a float32 scalar tensor."""
+  step = torch.as_tensor(step, dtype=torch.float32)
+  if lr_delay_steps > 0:
+    delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+        0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0))
+  else:
+    delay_rate = 1.0
+  return delay_rate * log_lerp(step / max_steps, lr_init, lr_final)
+
+
+@torch.no_grad()
+def clip_gradients(grads: Sequence[torch.Tensor],
+                   max_val: Optional[float] = None,
+                   max_norm: Optional[float] = None) -> None:
+  """Value-clip and global-norm-clip a list of grads IN PLACE, after
+  zeroing NaN and +-Inf (the JAX version returns new arrays; the trainer
+  calls it only when clipping is on, as the JAX trainer does)."""
+  for g in grads:
+    torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
+  if max_val is not None and max_val > 0:
+    for g in grads:
+      g.clamp_(-max_val, max_val)
+  if max_norm is not None and max_norm > 0:
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+    scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+    for g in grads:
+      g.mul_(scale)
 
 
 def searchsorted(a: torch.Tensor, v: torch.Tensor):

@@ -81,13 +81,15 @@ def blur_weights(weights, resample_padding: float):
 
 def resample_from_weights(s_vals, weights, num_samples: int,
                           resample_padding: float = 0.01,
-                          rand: Optional[torch.Tensor] = None):
+                          rand: Optional[torch.Tensor] = None,
+                          stop_grad: bool = True):
   """Hierarchical resampling: blur coarse weights, draw fine s values.
 
   s_vals: [..., n+1] sorted; weights: [..., n]; returns [..., num_samples+1]
-  sorted. rand: None, or uniform draws [..., num_samples+1]. The result
-  carries no gradient (the JAX stop_grad=True).
+  sorted. rand: None, or uniform draws [..., num_samples+1]. stop_grad
+  detaches the result (the JAX default).
   """
   w = blur_weights(weights, resample_padding)
-  return sorted_piecewise_constant_pdf(s_vals, w, num_samples + 1,
-                                       rand=rand).detach()
+  new_s = sorted_piecewise_constant_pdf(s_vals, w, num_samples + 1,
+                                        rand=rand)
+  return new_s.detach() if stop_grad else new_s

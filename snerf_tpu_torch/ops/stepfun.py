@@ -1,12 +1,13 @@
-"""Step-function resampling for the zip-nerf hierarchy (counterpart of
-snerf_tpu/ops/stepfun.py), the part the eval render runs.
+"""Step functions (counterpart of snerf_tpu/ops/stepfun.py): the
+resampling the zip eval render runs and the outer measure the mip
+proposal loss needs.
 
 The JAX samplers take a PRNG key. Here the random draw is injected:
 `rand=None` is the deterministic branch (the JAX `key=None`); otherwise
 `rand` holds the uniform [0, 1) draws of the documented shape. The sample
 grids come from torch.linspace, which can differ from jnp.linspace in the
-last ulp of a point. The losses (`lossfun_outer`, `lossfun_distortion`,
-...) belong to the trainer and are not ported yet.
+last ulp of a point. Of the losses only `lossfun_outer` is ported (the
+mip trainer's proposal loss); the zip losses wait for the zip trainer.
 """
 
 from __future__ import annotations
@@ -19,6 +20,42 @@ import torch
 from snerf_tpu_torch.ops import math as smath
 
 _F32_EPS = np.finfo(np.float32).eps
+
+
+def _gather_last(x, idx):
+  """x[..., idx] along the last axis, x broadcast to idx's batch dims
+  (the JAX version's one-hot einsum `_gather_last`)."""
+  return torch.gather(x.expand(*idx.shape[:-1], x.shape[-1]), -1, idx)
+
+
+def query(tq, t, y, outside_value: float = 0.0):
+  """Look up the step function (t, y) at locations tq."""
+  idx_lo, idx_hi = smath.searchsorted(t, tq)
+  yq = _gather_last(y, torch.clamp(idx_lo, max=y.shape[-1] - 1))
+  return torch.where(idx_lo == idx_hi, torch.full_like(yq, outside_value),
+                     yq)
+
+
+def inner_outer(t0, t1, y1):
+  """Inner and outer measures of the step function (t1, y1) on the
+  intervals t0."""
+  cy1 = torch.cat([torch.zeros_like(y1[..., :1]), torch.cumsum(y1, dim=-1)],
+                  dim=-1)
+  idx_lo, idx_hi = smath.searchsorted(t1, t0)
+  cy1_lo = _gather_last(cy1, idx_lo)
+  cy1_hi = _gather_last(cy1, idx_hi)
+  y0_outer = cy1_hi[..., 1:] - cy1_lo[..., :-1]
+  y0_inner = torch.where(idx_hi[..., :-1] <= idx_lo[..., 1:],
+                         cy1_lo[..., 1:] - cy1_hi[..., :-1],
+                         torch.zeros_like(y0_outer))
+  return y0_inner, y0_outer
+
+
+def lossfun_outer(t, w, t_env, w_env):
+  """Proposal loss: penalize nerf weight exceeding the proposal envelope."""
+  eps = torch.finfo(t.dtype).eps
+  _, w_outer = inner_outer(t, t_env, w_env)
+  return torch.clamp(w - w_outer, min=0) ** 2 / (w + eps)
 
 
 def weight_to_pdf(t, w):

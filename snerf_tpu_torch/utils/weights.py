@@ -4,8 +4,10 @@ snerf_tpu/utils/ref_import.py).
 `state_dict_from_flax` and `zip_state_dict_from_flax` map the JAX
 package's mip and zip parameter trees (as numpy arrays) onto the port's
 state_dicts: the inverses of `snerf_tpu.utils.ref_import`'s
-`map_mip_state_dict` and `map_zip_state_dict`. `glorot_init_` and
-`zip_init_` are the port's own seeded inits, for machines without JAX.
+`map_mip_state_dict` and `map_zip_state_dict`. `pose_params_from_flax`
+and `train_state_from_flax` carry a JAX train state's model and pose
+params across. `glorot_init_` and `zip_init_` are the port's own seeded
+inits, for machines without JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +56,23 @@ def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     i += 1
   _dense(sd, "proposal.density_layer", prop["density"])
   return sd
+
+
+def pose_params_from_flax(pose_params: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+  """Flax LearnPose params {"r", "t"} -> the port's LearnPose
+  state_dict."""
+  return {k: torch.from_numpy(np.array(pose_params[k], np.float32))
+          for k in ("r", "t")}
+
+
+def train_state_from_flax(params: Dict[str, Any], pose_params=None):
+  """A JAX train state's `params` (and `pose_params`, or None) -> the
+  state_dicts (model, pose model or None) to load into the port's
+  `create_train_state` models, so that both start from the same
+  numbers."""
+  return (state_dict_from_flax(params),
+          None if pose_params is None else pose_params_from_flax(pose_params))
 
 
 @torch.no_grad()

@@ -1,19 +1,24 @@
 """snerf_tpu_torch.ops.fused_mlp on the CPU against the JAX Pallas kernel.
 
-The CUDA kernel itself runs only on the card; `python3 chip_smoke.py`
-holds it against `fused_mlp_plain` there. Here the plain version, which
-the CPU wrapper runs, is held against the Pallas kernel in interpret
-mode (as tests/test_zipnerf.py runs it). Tolerance atol 1e-4 / rtol 1e-4:
-both are float32 matmuls with other summation orders, at D = 256.
+The CUDA kernels themselves run only on the card; `python3 chip_smoke.py`
+holds them against `fused_mlp_plain` and `fused_mlp_bwd_plain` there.
+Here the plain versions, which the CPU wrapper and the CPU autograd path
+run, are held against the Pallas kernel in interpret mode and its custom
+VJP under jax.grad (as tests/test_zipnerf.py runs it). Tolerance atol
+1e-4 / rtol 1e-4: both are float32 matmuls with other summation orders,
+at D = 256 (the backward's sums over N = 300 rows included).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from snerf_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
-from snerf_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from snerf_tpu_torch.ops.fused_mlp import (FusedMLPFunction, fused_mlp,
+                                           fused_mlp_bwd_plain,
+                                           fused_mlp_plain, wgrad_splits)
 
 N, D = 300, 256  # N is ragged against the Pallas tile of 128
 
@@ -71,3 +76,65 @@ def test_shape_checks(bad):
     b = b[:, 0]
   with pytest.raises(ValueError):
     fused_mlp(x, w, b)
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("last_relu", [True, False])
+def test_backward_matches_jax_grad_of_pallas_interpret(n_layers, last_relu):
+  """fused_mlp_bwd_plain (recomputing, and on saved layers) and autograd
+  through the CPU path against jax.grad of the Pallas kernel's VJP."""
+  x, w, b = _inputs(n_layers, seed=4)
+  g = np.random.RandomState(5).normal(size=(N, D)).astype(np.float32)
+  want = jax.grad(lambda x, w, b: jnp.sum(
+      jax_fused_mlp(x, w, b, 128, last_relu, True) * g), argnums=(0, 1, 2))(
+          jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+  tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+  layers = [fused_mlp_plain(tx, tw[:i + 1], tb[:i + 1],
+                            last_relu or i < n_layers - 1)
+            for i in range(n_layers)]
+  for saved in (None, layers):
+    got = fused_mlp_bwd_plain(tx, tw, tb, saved, torch.from_numpy(g),
+                              last_relu)
+    for gt, wt in zip(got, want):
+      np.testing.assert_allclose(gt.numpy(), np.asarray(wt), atol=1e-4,
+                                 rtol=1e-4)
+  leaves = [t.clone().requires_grad_() for t in (tx, tw, tb)]
+  (fused_mlp(*leaves, last_relu) * torch.from_numpy(g)).sum().backward()
+  assert fused_mlp.launches == 0
+  for leaf, wt in zip(leaves, want):
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(wt), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("last_relu", [True, False])
+def test_fused_mlp_function_gradcheck_float64(last_relu):
+  gen = torch.Generator().manual_seed(6)
+  x = torch.randn(12, 8, generator=gen, dtype=torch.float64)
+  w = torch.randn(3, 8, 8, generator=gen, dtype=torch.float64) * 0.4
+  b = torch.randn(3, 1, 8, generator=gen, dtype=torch.float64) * 0.1
+  assert torch.autograd.gradcheck(
+      lambda x, w, b: FusedMLPFunction.apply(x, w, b, last_relu),
+      [t.requires_grad_() for t in (x, w, b)])
+
+
+def test_bf16_under_autograd_raises():
+  x, w, b = (torch.from_numpy(a).bfloat16() for a in _inputs(2, seed=7))
+  with pytest.raises(NotImplementedError):
+    fused_mlp(x, w.requires_grad_(), b, True)
+  with torch.no_grad():   # forward-only bf16 stays supported
+    assert fused_mlp(x, w, b, True).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (4096 * 127, 1024, (2048, 254)),      # fine trunk: 2,048-row splits
+    (4096 * 127 + 5, 1024, (2048, 255)),  # ragged: the last split short
+    (4096 * 128, 256, (1024, 512)),       # proposal: 8 waves of blocks
+    (777, 256, (224, 4)),                 # small: splits of >= 256 rows
+    (2 ** 30, 1024, (16416, 65409)),      # past 65,535 splits: longer
+])
+def test_wgrad_splits(n, d, want):
+  """wgrad's split of N on a 132-SM card: splits cover N, each a multiple
+  of 32 rows and at most 2,048 unless that takes over 65,535 splits."""
+  rows, splits = wgrad_splits(n, d, 132)
+  assert (rows, splits) == want
+  assert rows % 32 == 0 and splits * rows >= n > (splits - 1) * rows

@@ -1,6 +1,6 @@
-"""The port (the mip and zip render paths) runs where JAX is absent, and
-chip_smoke.py refuses to run without a CUDA card (each in a fresh
-interpreter)."""
+"""The port (the mip and zip render paths and the mip train step) runs
+where JAX is absent, and chip_smoke.py refuses to run without a CUDA card
+(each in a fresh interpreter)."""
 
 import os
 import shutil
@@ -57,6 +57,26 @@ assert zout["rgb"].shape == (4, 4, 3), zout["rgb"].shape
 assert zout["semantic"].shape == (4, 4, 19), zout["semantic"].shape
 assert all(bool(torch.isfinite(v).all()) for v in zout.values())
 print("ZIP RENDERED", tuple(zout["rgb"].shape))
+import math
+from snerf_tpu_torch.config import train_config
+from snerf_tpu_torch.data.sampler import scene_to_device
+from snerf_tpu_torch.train.trainer import create_train_state, make_train_step
+
+tflags = load_config(["--config", "configs/nuScenes_depth_6cams",
+                      "--depth_conf", "False", "--hidden_layer", "128",
+                      "--proposal_hidden_layer", "128", "--N_samples", "8",
+                      "--N_fine", "8", "--N_rgb", "16"])
+tcfg = train_config(tflags)
+tscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
+tmodel, tpose, tstate = create_train_state(0, model_config(tflags), tcfg,
+                                           tscene.num_images)
+tstep = make_train_step(tmodel, tpose, tcfg, scene_to_device(tscene, "cpu"),
+                        tscene.i_train, tscene.near, tscene.far)
+gen = torch.Generator().manual_seed(0)
+tlosses = [float(tstep(tstate, gen)["loss"]) for _ in range(2)]
+assert all(math.isfinite(v) for v in tlosses), tlosses
+assert tpose is not None and float(tpose.r.grad.abs().max()) > 0
+print("TRAINED", tstate.step)
 jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "flax")
     or k.startswith("snerf_tpu.")))
@@ -76,6 +96,7 @@ def test_port_imports_and_renders_with_jax_blocked():
   assert proc.returncode == 0, proc.stderr[-3000:]
   assert "RENDERED (4, 4, 3)" in proc.stdout
   assert "ZIP RENDERED (4, 4, 3)" in proc.stdout
+  assert "TRAINED 2" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
