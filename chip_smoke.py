@@ -11,9 +11,22 @@ Phases, each fatal on failure:
      on the card at the mip render path's shapes, a ragged N, bf16, both
      last_relu settings; max error beside its tolerance, CUDA-event times;
   4b. kernel K2 against plain: the hash-grid row gather against
-     table[idx] at the zip path's shapes (the nerf and prop_mlp_1 tables
-     at chunk 8192), a ragged N, C in {2, 8}, the TPU kernel's shape, the
-     edge rows 0 and T-1; exact equality, CUDA-event times and GB/s;
+     table[idx] at the zip paths' shapes (a hashed level's own 2^21 rows
+     of the nerf and prop_mlp_1 tables at the render chunk of 8192 rays
+     and the train batch of 32768), a stress case over the whole nerf
+     table, a ragged N, C in {2, 8}, the TPU kernel's shape, the edge rows
+     0 and T-1; exact equality, CUDA-event times, GB/s and the bound;
+  4c. K2's scatter-add backward against scatter_add_rows_plain
+     (index_add_) and an f64 index_add_ control, at the zip train step's
+     shapes (a dense and a hashed level of prop_mlp_0, C = 1, and of the
+     nerf MLP, C = 4, each into its level's own gradient), a ragged Q, C =
+     3 into a sub-range of the rows and the TPU kernel's 4,992-row table;
+     error / max|control| within SCATTER_TOL, no update outside the drawn
+     rows, CUDA-event times, GB/s and per-level ms;
+  4d. the gather probes: P1 (take_along_axis along either axis) against
+     torch.take_along_dim and P2 (the shared-memory gather-select) against
+     Tensor.gather, bit-equal, then the probe module's survey of the
+     gather primitives (snerf_tpu_torch/probes/gather.py);
   5. mip slice: the shipped nuScenes_depth_6cams model at full width with
      a seeded init renders 2 held-out views of the synthetic scene through
      make_eval_render_fn / render_image (chunk 4096); the outputs must be
@@ -43,9 +56,24 @@ Phases, each fatal on failure:
      counts), finite and falling loss, a torch.profiler breakdown of one
      step, and one step against the same weights and draws with the
      stacks' backward plain (every grad within STEP_BWD_TOL) and with
-     plain stacks (loss, metrics, every grad), and a non-zero pose grad.
-The kernels line lists fused_mlp and its three backward kernels with the
-train step's launch counts, and hash_gather with the zip render's.
+     plain stacks (loss, metrics, every grad), and a non-zero pose grad;
+  8. zip train slice: the shipped waymo_zipnerf training step at full
+     width (zip_lr_delay 0) on the same scene with semantic labels from
+     depth quantiles and an object mask on one corner, batch 32768: 2
+     warm-up and 12 timed steps (s/step, rays/s, peak memory, 30 K2
+     gathers and 30 scatter-adds a step), a finite and falling loss, a
+     torch.profiler breakdown of one step with each scatter-add launch,
+     and one step against the same weights whose gathers run the plain
+     pair (table[idx] forward, its accumulating scatter-add backward):
+     every grad, each hash level's apart, within ZIP_STEP_GRAD_TOL, which
+     must sit below the weakest fault reading of the run.
+Each phase prints its seconds. The kernels line lists every kernel with
+its path's launch counts (the mip train step for fused_mlp and its three
+backward kernels, the zip train step for hash_gather and
+hash_scatter_add, the survey for the probes), its time at the path's
+shapes beside its plain version's, its bound (the larger of its bytes
+over HBM_RATE and its operations over their peak rate) and the time of
+one PyTorch call computing the same function, where there is one.
 The last line is {"ok": true, "device": {...}}; without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -117,6 +145,41 @@ ZIP_RENDER_TOL = 1e-6
 # it would not; the zeroed-table check below shows the difference).
 ZIP_TABLE_SCALE = 1.0
 TABLES_MATTER = 1e-3       # min rgb change when the tables are zeroed
+# The card's peak rates (H100 SXM data sheet, dense, at 700 W) for the
+# bound of each kernel: HBM bytes/s; float32 work outside the tensor cores;
+# float32-faithful matrix products as 3xTF32 on the tensor cores (three
+# TF32 products per f32 product, 495 TFLOP/s of TF32).
+HBM_RATE = 3.35e12
+L2_BYTES = 50 * 2**20
+F32_RATE = 67e12
+F32_MMA_RATE = 495e12 / 3
+# The scatter-add kernel against an f64 index_add_ control, as a fraction
+# of max|control|. Atomics add in a new order on every run, and the plain
+# f32 index_add_ (atomic on CUDA too) is off the control by the same kind
+# of rounding, printed beside. A row of the dense level 0 sums ~24k N(0, 1)
+# updates (|sum| ~ 150), so a missing or doubled update moves it by ~1/150
+# of max|control| and a wrong row by O(1): 1e-4 catches either, while f32
+# sums of 24k terms in any order stay ~1e-6 off.
+SCATTER_TOL = 1e-4
+# The zip train slice: warm-up and timed steps; K2 gathers and scatter-
+# adds a step, one per hash level of each MLP (10 levels x 3 MLPs).
+ZIP_TRAIN_WARMUP, ZIP_TRAIN_STEPS = 2, 12
+K2_PER_STEP = 30
+# One zip step against the same weights whose gathers run the plain pair
+# (table[idx] and PyTorch's backward of it, index_put_ with accumulate) on
+# the same draws: the forward is bit-identical (a gather copies bits), so
+# the loss should agree exactly. The table grads differ by the order of
+# the f32 additions into each row, most on the dense levels, where a row
+# sums ~2.4e4 updates of a step. Relative L2 per tensor and, for a table,
+# per level, after the same clipping. On an H100 the sound kernels read at
+# most 3.3e-5 per table and 4.1e-5 per level (a proposal MLP's level 0).
+# The fault the limit must catch, read in the same run from the plain
+# grads: one row's updates doubled, which moves its level by the row's
+# share of the level's L2 norm; that of each level's largest row read at
+# least 2.5e-3 (a proposal MLP's hashed level 9), and the run checks that
+# it stays above the limit. The limit sits between the two readings.
+ZIP_STEP_LOSS_TOL = 1e-5
+ZIP_STEP_GRAD_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -440,6 +503,28 @@ def _grad_errs(torch, a, b):
   return out
 
 
+def _table_level_errs(torch, a, b):
+  """{(table, level): (relative L2 error, fault reading)} of two zip
+  models' hash-table grads, a against b (the plain one), each level's
+  rows apart. The fault reading is the error that doubling the updates
+  of the level's largest row of b's grad would read: that row's norm over
+  the level's."""
+  from snerf_tpu_torch.models.hashgrid import HashEncoding
+  out = {}
+  pb = dict(b.named_modules())
+  for name, m in a.named_modules():
+    if not isinstance(m, HashEncoding):
+      continue
+    sizes = list(m.spec.sizes)
+    levels = zip(torch.split(m.embeddings.grad.double(), sizes),
+                 torch.split(pb[name].embeddings.grad.double(), sizes))
+    for lvl, (g, w) in enumerate(levels):
+      wn = w.norm().clamp_min(1e-30)
+      out[(name, lvl)] = (float((g - w).norm() / wn),
+                          float(w.norm(dim=1).max() / wn))
+  return out
+
+
 def train_slice(torch, scene, card):
   """Phase 7b: the nuScenes_depth_6cams training step at full width.
   Returns the K1 launch counts of the timed steps."""
@@ -607,7 +692,11 @@ def train_slice(torch, scene, card):
 
 def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
   """K2 against table[idx] on the card: exact equality (a gather copies
-  bits), the edge rows 0 and rows-1, and CUDA-event times in turns."""
+  bits), the edge rows 0 and rows-1, and CUDA-event times in turns.
+  Indices uniform over a [rows, C] table: one level's rows, as the
+  encoder gathers from each level's own slice, or a larger stress case.
+  The bound: a table that fits the L2 is read from HBM once (the rows
+  this run touches); a larger one costs a 32-byte sector an index."""
   gen = torch.Generator(device="cuda").manual_seed(rows * 9 + c)
   table = torch.randn(rows, c, generator=gen, device="cuda")
   idx = torch.randint(0, rows, (n_idx,), generator=gen, device="cuda",
@@ -626,17 +715,28 @@ def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
   k1 = time_ms(torch, lambda: hash_ops.gather_rows(table, idx), iters)
   k2 = time_ms(torch, lambda: hash_ops.gather_rows(table, idx), iters)
   p2 = time_ms(torch, lambda: hash_ops.gather_rows_plain(table, idx), iters)
+  idx_l = idx.long()
+  lib = time_ms(torch, lambda: table[idx_l], iters)
+  del idx_l
   k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
   useful = n_idx * (4 + 2 * 4 * c)   # index read, row read, row write
+  # the least bytes: the index and the output row, and the table's rows
+  if rows * c * 4 <= L2_BYTES:
+    touched = int(torch.unique(idx).numel())
+    b_ms, b_by = bound_ms(n_idx * (4 + 4 * c) + touched * c * 4)
+  else:
+    b_ms, b_by = bound_ms(n_idx * (4 + 32 + 4 * c))
   log(f"  {name}: T={rows} C={c} N={n_idx}: equal={equal} edges={edges} "
       f"max_abs_err={err:.1e} kernel {k_ms:.3f} ms ({useful / k_ms / 1e6:.0f}"
       f" GB/s) plain {p_ms:.3f} ms ({useful / p_ms / 1e6:.0f} GB/s) "
+      f"table[idx] {lib:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
       f"[{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]")
   check(equal, f"{name}: K2 disagrees with table[idx] (max abs err {err})")
   check(edges, f"{name}: K2 got the edge rows 0 / T-1 wrong")
   del table, idx, got, want, flat
   torch.cuda.empty_cache()
-  return dict(err=err, ms=k_ms, plain_ms=p_ms)
+  return dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms,
+              bound_by=b_by)
 
 
 def profile_chunk(torch, render_fn, rays):
@@ -724,8 +824,7 @@ def profile_chunk(torch, render_fn, rays):
 
 
 def zip_slice(torch, scene, views, view_rays, card):
-  """Phase 6: the waymo_zipnerf hash arm at full width. Returns the K2
-  launch count of the render."""
+  """Phase 6: the waymo_zipnerf hash arm at full width."""
   from snerf_tpu_torch.config import load_config, zip_model_config
   from snerf_tpu_torch.models.zipnerf import ZipNerfModel
   from snerf_tpu_torch.ops import hash_ops
@@ -828,7 +927,383 @@ def zip_slice(torch, scene, views, view_rays, card):
   del plain_model, flat, want
   torch.cuda.empty_cache()
   profile_chunk(torch, render_fn, chunk_rays)
-  return launches
+
+
+def bound_ms(bytes_, flops=0.0, flop_rate=None):
+  """(ms, "bytes" or "operations"): the least time the card could take,
+  the larger of the bytes over HBM_RATE and the operations over their
+  peak rate."""
+  t_bytes = bytes_ / HBM_RATE * 1e3
+  t_ops = flops / flop_rate * 1e3 if flop_rate else 0.0
+  return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def scatter_case(torch, hash_ops, name, rows, c, q, lo, hi, iters):
+  """The scatter-add kernel against scatter_add_rows_plain (index_add_,
+  atomic on CUDA too) and an f64 index_add_ control on the same inputs,
+  with table[idx]'s backward (index_put_ accumulate) read beside:
+  indices uniform in the level's rows [lo, hi) of a [rows, C] table,
+  N(0, 1) gradients. Error / max|control| for both, CUDA-event times in
+  turns, the bytes bound and GB/s."""
+  gen = torch.Generator(device="cuda").manual_seed(q * 3 + c + lo)
+  idx = torch.randint(lo, hi, (q,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+  idx[0], idx[-1] = lo, hi - 1
+  g = torch.randn(q, c, generator=gen, device="cuda")
+  got = hash_ops.scatter_add_rows(idx, g, rows)
+  plain = hash_ops.scatter_add_rows_plain(idx, g, rows)
+  # table[idx]'s own backward, the plain pair's in phase 8
+  put = torch.zeros(rows, c, device="cuda").index_put_(
+      (idx.long(),), g, accumulate=True)
+  control = torch.zeros(rows, c, dtype=torch.float64, device="cuda")
+  control.index_add_(0, idx, g.double())
+  torch.cuda.synchronize()
+  scale = float(control.abs().max())
+  abs_err = float((got.double() - control).abs().max())
+  err = abs_err / scale
+  plain_err = float((plain.double() - control).abs().max()) / scale
+  put_err = float((put.double() - control).abs().max()) / scale
+  untouched = float(got[:lo].abs().sum() + got[hi:].abs().sum())
+  del plain, put, control
+  p1 = time_ms(torch, lambda: hash_ops.scatter_add_rows_plain(idx, g, rows),
+               iters)
+  k1 = time_ms(torch, lambda: hash_ops.scatter_add_rows(idx, g, rows), iters)
+  k2 = time_ms(torch, lambda: hash_ops.scatter_add_rows(idx, g, rows), iters)
+  p2 = time_ms(torch, lambda: hash_ops.scatter_add_rows_plain(idx, g, rows),
+               iters)
+  lib = time_ms(torch, lambda: torch.zeros(rows, c, device="cuda").index_add_(
+      0, idx, g), iters)
+  k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+  nbytes = q * (4 + 4 * c) + rows * c * 4   # idx, g read; dT written
+  b_ms, b_by = bound_ms(nbytes, q * c, F32_RATE)
+  log(f"  {name}: T={rows} C={c} Q={q} rows [{lo}, {hi}): err/max|f64| "
+      f"{err:.2e} (plain f32 index_add_ {plain_err:.2e}, index_put_ "
+      f"accumulate {put_err:.2e}; tol {SCATTER_TOL})"
+      f" kernel {k_ms:.3f} ms ({nbytes / k_ms / 1e6:.0f} GB/s, "
+      f"{q / k_ms / 1e6:.1f} G upd/s) plain {p_ms:.3f} ms index_add_ "
+      f"{lib:.3f} ms bound {b_ms:.3f} ms ({b_by}) [{k1:.3f}/{k2:.3f} vs "
+      f"{p1:.3f}/{p2:.3f}]")
+  check(bool(torch.isfinite(got).all()), f"{name}: non-finite scatter-add")
+  check(untouched == 0.0, f"{name}: rows outside [{lo}, {hi}) got updates")
+  check(err <= SCATTER_TOL, f"{name}: scatter-add off the f64 control by "
+        f"{err:.2e} of its max")
+  del idx, g, got
+  torch.cuda.empty_cache()
+  return dict(err=err, abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
+              library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def probe_phase(torch, iters=20):
+  """Phase 4d: P1 and P2 against their plain versions (bit-equal), then
+  the survey of the gather primitives. Returns (results of the P1 and P2
+  cases, the survey, the launch counts of the survey run)."""
+  from snerf_tpu_torch.probes import gather as probes
+
+  res = {}
+  gen = torch.Generator(device="cuda").manual_seed(5)
+  for axis, s, l in ((1, 8, 4096), (1, 64, 131072), (1, 3, 1000),
+                     (0, 1024, 128), (0, 64, 131072), (0, 7, 333)):
+    x = torch.randn(s, l, generator=gen, device="cuda")
+    idx = torch.randint(0, x.shape[axis], (s, l), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    idx_l = idx.long()
+    got = probes.take_along_axis(x, idx, axis)
+    want = probes.take_along_axis_plain(x, idx, axis)
+    equal = torch.equal(got, want)
+    k_ms = time_ms(torch, lambda: probes.take_along_axis(x, idx, axis), iters)
+    p_ms = time_ms(torch, lambda: probes.take_along_axis_plain(x, idx, axis),
+                   iters)
+    lib = time_ms(torch, lambda: torch.take_along_dim(x, idx_l, dim=axis),
+                  iters)
+    b_ms, b_by = bound_ms(s * l * 12)     # idx, x read; out written
+    log(f"  P1 take_along_axis axis {axis} [{s}x{l}]: equal={equal} kernel "
+        f"{k_ms:.4f} ms plain {p_ms:.4f} ms take_along_dim {lib:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    check(equal, f"P1 axis {axis} {s}x{l} differs from take_along_dim")
+    res[f"P1 axis {axis} {s}x{l}"] = dict(err=float((got - want).abs().max()),
+                                         ms=k_ms, plain_ms=p_ms,
+                                         library_ms=lib, bound_ms=b_ms,
+                                         bound_by=b_by)
+  for c, t, q in ((8, 4992, 1 << 17), (1, 4913, 1 << 20), (4, 4913, 777)):
+    tab = torch.randn(c, t, generator=gen, device="cuda")
+    idx = torch.randint(0, t, (c, q), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[:, 0], idx[:, -1] = 0, t - 1
+    idx_l = idx.long()
+    got = probes.gather_select(tab, idx)
+    want = probes.gather_select_plain(tab, idx)
+    equal = torch.equal(got, want)
+    k_ms = time_ms(torch, lambda: probes.gather_select(tab, idx), iters)
+    p_ms = time_ms(torch, lambda: probes.gather_select_plain(tab, idx), iters)
+    lib = time_ms(torch, lambda: tab.gather(1, idx_l), iters)
+    b_ms, b_by = bound_ms(c * q * 8 + c * t * 4)
+    log(f"  P2 gather_select [{c}x{t} table, {c}x{q} idx]: equal={equal} "
+        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms gather {lib:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    check(equal, f"P2 {c}x{t} x {q} differs from tab.gather")
+    res[f"P2 {c}x{t} {q}"] = dict(err=float((got - want).abs().max()),
+                                  ms=k_ms, plain_ms=p_ms, library_ms=lib,
+                                  bound_ms=b_ms, bound_by=b_by)
+  del x, idx, idx_l, got, want, tab
+  torch.cuda.empty_cache()
+  # the probe entry point, with its launches counted
+  probes.take_along_axis.launches = probes.gather_select.launches = 0
+  survey = probes.survey(log=lambda s: log("  " + s), iters=iters)
+  counts = {"probe_take_along_axis": probes.take_along_axis.launches,
+            "probe_gather_select": probes.gather_select.launches}
+  log(f"  probe launches in the survey: {counts}")
+  check(all(v > 0 for v in counts.values()), f"a probe kernel was not "
+        f"launched by the survey: {counts}")
+  torch.cuda.empty_cache()
+  return res, survey, counts
+
+
+def profile_zip_step(torch, step_fn):
+  """Device time of one zip train step under torch.profiler: K2 gathers,
+  scatter-adds (each launch in order), cuBLAS, the forward hash index and
+  weight math (under hash_encode), the forward losses, the backward's
+  other kernels, Adam and the rest; with the idle share against the host
+  clock."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile, record_function
+  from snerf_tpu_torch.models import hashgrid
+  from snerf_tpu_torch.train import losses, zip_trainer
+
+  def labelled(fn, label):
+    def wrapped(*args, **kwargs):
+      with record_function(label):
+        return fn(*args, **kwargs)
+    return wrapped
+
+  patched = [(hashgrid, "hash_encode", "hash_encode"),
+             (zip_trainer, "hash_decay_loss", "losses")] + [
+                 (losses, n, "losses") for n in (
+                     "charbonnier_loss", "interlevel_loss_anti",
+                     "distortion_loss", "zip_smooth_loss",
+                     "zip_semantic_smooth_loss", "masked_mean")]
+  orig = [getattr(m, n) for m, n, _ in patched]
+  for m, n, label in patched:
+    setattr(m, n, labelled(getattr(m, n), label))
+  try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      step_fn()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+  finally:
+    for (m, n, _), f in zip(patched, orig):
+      setattr(m, n, f)
+
+  def kind(name):
+    if "gather_rows_kernel" in name:
+      return "K2 gather"
+    if "scatter_add_rows_kernel" in name:
+      return "scatter-add"
+    if "gemm" in name.lower() or "gemv" in name.lower():
+      return "matmul (cuBLAS)"
+    return None
+
+  def context(e):
+    while e is not None:
+      if e.name.startswith("Optimizer.step"):
+        return "Adam"
+      if e.name == "hash_encode":
+        return "hash index/weight math (forward)"
+      if e.name == "losses":
+        return "losses (forward)"
+      if e.name.startswith("autograd::engine::evaluate_function"):
+        return "backward (elementwise, reductions, copies)"
+      e = e.cpu_parent
+    return "other forward (sampling, compositing, activations)"
+
+  events = prof.events()
+  out = {k: 0.0 for k in ("K2 gather", "scatter-add", "matmul (cuBLAS)",
+                          "hash index/weight math (forward)",
+                          "losses (forward)",
+                          "backward (elementwise, reductions, copies)",
+                          "Adam",
+                          "other forward (sampling, compositing, "
+                          "activations)")}
+  busy, scatters, by_name = 0.0, [], {}
+  for e in events:
+    if e.device_type != DeviceType.CUDA or getattr(
+        e, "is_user_annotation", False):
+      continue
+    ms = e.time_range.elapsed_us() / 1e3
+    busy += ms
+    by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    if kind(e.name):
+      out[kind(e.name)] += ms
+    if kind(e.name) == "scatter-add":
+      scatters.append((e.time_range.start, ms))
+  for e in events:
+    if e.device_type == DeviceType.CPU and e.kernels:
+      for k in e.kernels:
+        if not kind(k.name):
+          out[context(e)] += k.duration / 1e3
+  if busy == 0:
+    log(f"  profile of one step: wall {wall_ms:.1f} ms; torch.profiler "
+        "recorded no device time, breakdown not measured")
+    return None
+  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
+  log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
+      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
+  for k in list(out)[:8]:
+    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
+  per_launch = [ms for _, ms in sorted(scatters)]
+  log(f"    scatter-add launches in order ({len(per_launch)}; the backward "
+      f"runs nerf_mlp, prop_mlp_1, prop_mlp_0, each level 9..0): "
+      + " ".join(f"{v:.3f}" for v in per_launch))
+  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    log(f"    kernel {name[:90]}: {ms:.2f} ms")
+  out["scatter_per_launch"] = per_launch
+  return out
+
+
+def zip_train_slice(torch, scene, card):
+  """Phase 8: the waymo_zipnerf training step at full width. Returns the
+  K2 gather and scatter-add launch counts of the timed steps."""
+  import dataclasses
+
+  import numpy as np
+  from snerf_tpu_torch.config import (load_config, zip_model_config,
+                                      zip_train_config)
+  from snerf_tpu_torch.data.sampler import scene_to_device
+  from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import hash_ops
+  from snerf_tpu_torch.train import zip_trainer as zt
+
+  # lr_delay 0: the shipped 5,000-step warm-up starts at lr 1e-10
+  cfg = load_config(["--config",
+                     os.path.join(ROOT, "configs", "waymo_zipnerf"),
+                     "--zip_lr_delay", "0"])
+  zcfg, tcfg = zip_model_config(cfg), zip_train_config(cfg)
+  # semantic labels from depth quantiles, an object mask on one corner
+  depth = scene.depths
+  edges = np.quantile(depth, np.linspace(0, 1, zcfg.class_num + 1)[1:-1])
+  mask = np.zeros(depth.shape, bool)
+  mask[:, :16, :16] = True
+  zscene = dataclasses.replace(
+      scene, semantics=np.digitize(depth, edges).astype(np.int32),
+      skymask=mask)
+  n_pix, n_patches = zt._patch_split(tcfg)
+  log(f"[zip train slice] waymo_zipnerf with zip_lr_delay 0 (shipped "
+      f"{load_config(['--config', os.path.join(ROOT, 'configs', 'waymo_zipnerf')]).zip_lr_delay}"
+      f"): batch {tcfg.batch_size} ({n_pix} pixels + {n_patches} patches of "
+      f"{tcfg.patch_size}^2), samples {zcfg.num_prop_samples}/"
+      f"{zcfg.num_nerf_samples} x {zcfg.sample_n}, {zcfg.grid_num_levels} "
+      f"levels at 2^{zcfg.grid_log2_hashmap_size}, grids "
+      f"{zcfg.prop_grid_resolutions}/{zcfg.nerf_grid_resolution}, "
+      f"{zcfg.class_num} classes, lr {tcfg.lr_init} -> {tcfg.lr_final}, "
+      f"grad clip {tcfg.grad_max_norm}, depth {tcfg.depth_loss_mult} "
+      f"(completion {tcfg.depth_complete}), semantic "
+      f"{tcfg.semantic_loss_mult}, float32; scene "
+      f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
+      f"{len(scene.i_train)} train views")
+  dev_scene = scene_to_device(zscene, "cuda")
+  state = zt.create_zip_train_state(0, zcfg, tcfg, zscene.num_images,
+                                    device="cuda")
+  model = state.model
+  step = zt.make_zip_train_step(model, tcfg, dev_scene, zscene.i_train,
+                                zscene.near, zscene.far)
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  kernels = (hash_ops.gather_rows, hash_ops.scatter_add_rows)
+
+  for _ in range(ZIP_TRAIN_WARMUP):
+    step(state, gen)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  for k in kernels:
+    k.launches = 0
+  losses = []
+  t0 = time.perf_counter()
+  for _ in range(ZIP_TRAIN_STEPS):
+    losses.append(step(state, gen)["loss"])
+  torch.cuda.synchronize()
+  secs = (time.perf_counter() - t0) / ZIP_TRAIN_STEPS
+  counts = {"hash_gather": hash_ops.gather_rows.launches,
+            "hash_scatter_add": hash_ops.scatter_add_rows.launches}
+  peak = torch.cuda.max_memory_allocated()
+  losses = [float(v) for v in losses]
+  k = ZIP_TRAIN_STEPS // 3
+  first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+  log(f"  {ZIP_TRAIN_STEPS} steps after {ZIP_TRAIN_WARMUP} warm-up: "
+      f"{secs:.4f} s/step = {tcfg.batch_size / secs:.1f} rays/s; peak device "
+      f"memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated) | "
+      f"{card}")
+  log(f"  loss: first {k} mean {first:.5f}, last {k} mean {last:.5f}; "
+      f"{' '.join(f'{v:.4f}' for v in losses)}")
+  per_step = {n: v / ZIP_TRAIN_STEPS for n, v in counts.items()}
+  log(f"  launches per step: {per_step} (expected {K2_PER_STEP} each)")
+  check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+  check(last < first, f"the loss did not fall: first {k} {first}, last {k} "
+        f"{last}")
+  for n, v in counts.items():
+    check(v == K2_PER_STEP * ZIP_TRAIN_STEPS,
+          f"{n} launches {v}, expected {K2_PER_STEP * ZIP_TRAIN_STEPS}")
+
+  prof = profile_zip_step(torch, lambda: step(state, gen))
+
+  # one step of this model against the same weights whose gathers run the
+  # plain pair (table[idx] forward, its scatter-add backward), on the same
+  # draws
+  plain = ZipNerfModel(zcfg, gather_fn=hash_ops.gather_rows_plain,
+                       device="cuda")
+  plain.load_state_dict(model.state_dict())
+  pstate = zt.ZipTrainState(step=state.step, model=plain,
+                            optimizer=zt.make_zip_optimizer(plain, tcfg))
+  pstep = zt.make_zip_train_step(plain, tcfg, dev_scene, zscene.i_train,
+                                 zscene.near, zscene.far)
+  draws = zt.draw_zip_step(zcfg, tcfg, dev_scene["images"], zscene.i_train,
+                           gen)
+  got, want = step(state, draws), pstep(pstate, draws)
+  rel = {n: abs(float(got[n]) - float(want[n])) / max(abs(float(want[n])),
+                                                       1e-30)
+         for n in want}
+  errs = _grad_errs(torch, model, plain)
+  worst = max(errs.items(), key=lambda kv: kv[1][0])
+  tables = {n: v[0] for n, v in errs.items() if n.endswith("embeddings")}
+  lerrs = _table_level_errs(torch, model, plain)
+  lworst = max(lerrs.items(), key=lambda kv: kv[1][0])
+  fault = min(lerrs.items(), key=lambda kv: kv[1][1])
+  log(f"  one step, kernel model vs plain-pair model: loss rel err "
+      f"{rel['loss']:.2e} (tol {ZIP_STEP_LOSS_TOL}), metrics {rel}; grads: "
+      f"worst relative L2 {worst[1][0]:.2e} at {worst[0]} (tol "
+      f"{ZIP_STEP_GRAD_TOL}); tables {tables}")
+  log(f"  table grads by level: worst relative L2 {lworst[1][0]:.2e} at "
+      f"{lworst[0]} (tol {ZIP_STEP_GRAD_TOL}); fault reading (a level's "
+      f"largest row doubled) at least {fault[1][1]:.2e} at {fault[0]}; "
+      + " ".join(f"{n.split('.')[0]}/{lvl} {e:.2e}/{f:.2e}"
+                 for (n, lvl), (e, f) in lerrs.items()))
+  check(rel["loss"] <= ZIP_STEP_LOSS_TOL,
+        f"kernel step's loss disagrees with the plain pair: {rel}")
+  check(worst[1][0] <= ZIP_STEP_GRAD_TOL,
+        f"kernel step's grads disagree with the plain pair: {worst}")
+  check(lworst[1][0] <= ZIP_STEP_GRAD_TOL,
+        f"kernel step's table grads disagree with the plain pair: {lworst}")
+  check(fault[1][1] > ZIP_STEP_GRAD_TOL,
+        f"ZIP_STEP_GRAD_TOL {ZIP_STEP_GRAD_TOL} would not see a doubled row "
+        f"at {fault}")
+  check(all(float(p.grad.abs().max()) > 0 for n, p in
+            model.named_parameters() if n.endswith("embeddings")),
+        "a hash table got no gradient")
+  times = {}
+  for name, (fn, st) in (("plain", (pstep, pstate)), ("kernel", (step, state)),
+                         ("kernel2", (step, state)),
+                         ("plain2", (pstep, pstate))):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(st, draws)
+    torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t0
+  log(f"  one step end to end: kernel model {times['kernel']:.4f} / "
+      f"{times['kernel2']:.4f} s, plain-pair model {times['plain']:.4f} / "
+      f"{times['plain2']:.4f} s")
+  del model, plain, state, pstate, step, pstep
+  torch.cuda.empty_cache()
+  return counts, prof
 
 
 def main() -> int:
@@ -849,6 +1324,15 @@ def main() -> int:
   from snerf_tpu_torch.train.renderer import make_eval_render_fn, render_image
   from snerf_tpu_torch.utils.weights import glorot_init_
 
+  phase_secs = {}
+  t_phase = [time.perf_counter()]
+
+  def phase_done(name):
+    now = time.perf_counter()
+    phase_secs[name] = now - t_phase[0]
+    log(f"[phase {name}] {phase_secs[name]:.1f} s")
+    t_phase[0] = now
+
   # 1. device
   card = card_line()
   kind = torch.cuda.get_device_name(0)
@@ -864,13 +1348,14 @@ def main() -> int:
   built = _cuda.build_all()
   libs = ", ".join(os.path.relpath(so, ROOT) for so, _ in built.values())
   log(f"[build] {libs} in {time.perf_counter() - t0:.1f} s (parallel)")
-  check(set(built) >= {"fused_mlp", "hash_gather"},
+  check(set(built) >= {"fused_mlp", "hash_gather", "gather_probe"},
         f"kernel sources missing: {sorted(built)}")
   for so, build_log in built.values():
     for line in build_log.splitlines():
       if ("registers" in line or "spill" in line or "error" in line
           or "Compiling entry" in line):
         log(f"  {line.strip()}")
+  phase_done("1-3 device, build")
 
   # 4. kernel against plain
   log("[kernel] fused_mlp (CUDA) against fused_mlp_plain")
@@ -886,20 +1371,64 @@ def main() -> int:
   ]
   results = {c[0]: kernel_case(torch, fm.fused_mlp, fm.fused_mlp_plain, *c)
              for c in cases}
+  phase_done("4 K1")
 
-  # 4b. kernel K2 against plain, at the zip path's shapes (chunk 8192)
+  # 4b. kernel K2 against plain, at the zip paths' shapes: one hashed
+  # level (2^21 rows, the level's own slice, as the encoder gathers it) of
+  # the render chunk (8192 rays) and of the train batch (32768 rays), and
+  # a stress case over the whole nerf table (indices the path never draws)
   log("[kernel] hash_gather (CUDA) against table[idx]")
-  nerf_rows = make_grid_spec(10, 4, 16, 8192, 21).total_rows
-  prop1_rows = make_grid_spec(10, 1, 16, 2048, 21).total_rows
+  nerf_spec = make_grid_spec(10, 4, 16, 8192, 21)
+  prop0_spec = make_grid_spec(10, 1, 16, 512, 21)
+  prop1_spec = make_grid_spec(10, 1, 16, 2048, 21)
+  nerf_rows = nerf_spec.total_rows
+  nerf9, prop1_9 = nerf_spec.sizes[9], prop1_spec.sizes[9]
   gcases = [
-      ("nerf level", nerf_rows, 4, 8192 * 32 * 7 * 8, 10),
-      ("prop_mlp_1 level", prop1_rows, 1, 8192 * 64 * 7 * 8, 10),
+      ("nerf level 9", nerf9, 4, 8192 * 32 * 7 * 8, 10),
+      ("prop_mlp_1 level 9", prop1_9, 1, 8192 * 64 * 7 * 8, 10),
+      ("nerf level 9, train batch", nerf9, 4, 32768 * 32 * 7 * 8, 5),
+      ("prop_mlp_1 level 9, train batch", prop1_9, 1, 32768 * 64 * 7 * 8,
+       5),
+      ("whole nerf table, train batch (stress)", nerf_rows, 4,
+       32768 * 32 * 7 * 8, 5),
       ("ragged", nerf_rows, 4, 777 * 8, 20),
       ("C=2", 1 << 21, 2, 1 << 22, 20),
       ("C=8", 1 << 21, 8, 1 << 22, 20),
       ("TPU kernel shape", 4992, 8, 1 << 17, 50),
   ]
   gresults = {c[0]: gather_case(torch, hash_ops, *c) for c in gcases}
+  phase_done("4b K2")
+
+  # 4c. the scatter-add kernel at the zip train step's shapes: one level
+  # of each kind per MLP into that level's own gradient (dense level 0:
+  # 17^3 rows; hashed level 9: 2^21 rows), a ragged Q, one into a sub-range
+  # of its rows, and the TPU kernel's table
+  log("[kernel] hash_scatter_add (CUDA) against index_add_ and an f64 "
+      "control")
+  q_prop, q_nerf = 32768 * 64 * 7 * 8, 32768 * 32 * 7 * 8
+  scases = [
+      ("prop_mlp_0 level 0 (dense)", prop0_spec.sizes[0], 1, q_prop, 0,
+       prop0_spec.sizes[0], 3),
+      ("prop_mlp_0 level 9 (hashed)", prop0_spec.sizes[9], 1, q_prop, 0,
+       prop0_spec.sizes[9], 3),
+      ("nerf level 0 (dense)", nerf_spec.sizes[0], 4, q_nerf, 0,
+       nerf_spec.sizes[0], 3),
+      ("nerf level 9 (hashed)", nerf9, 4, q_nerf, 0, nerf9, 3),
+      ("ragged", nerf_rows, 4, 777 * 8 + 3, 0, nerf_rows, 20),
+      ("ragged C=3, rows [1000, 2^20) of 2^21", 1 << 21, 3, 777 * 8 + 3,
+       1000, 1 << 20, 20),
+      ("TPU kernel shape", 4992, 8, 1 << 17, 0, 4992, 50),
+  ]
+  sresults = {c[0]: scatter_case(torch, hash_ops, *c) for c in scases}
+  log("  per level at the train step's shapes, ms: " + ", ".join(
+      f"{n} {sresults[n]['ms']:.3f}" for n, *_ in scases[:4]))
+  phase_done("4c scatter-add")
+
+  # 4d. the gather probes P1 and P2, and the primitive survey
+  log("[kernel] probes P1 take_along_axis and P2 gather_select (CUDA) "
+      "against take_along_dim and gather")
+  presults, _, probe_counts = probe_phase(torch)
+  phase_done("4d probes")
 
   # 7a. K1's backward against plain, at the train path's shapes
   log("[kernel] fused_mlp backward (CUDA dgrad, wgrad, reduce) against "
@@ -914,6 +1443,7 @@ def main() -> int:
   ]
   bresults = {c[0]: bwd_case(torch, fm, *c) for c in bcases}
   kresults = bwd_kernel_times(torch, fm, fine_rows, 1024, 5)
+  phase_done("7a K1 backward")
 
   # 5. slice
   cfg = load_config(["--config",
@@ -986,45 +1516,96 @@ def main() -> int:
 
   del model, plain_model, outs, got, want, chunk_rays
   torch.cuda.empty_cache()
+  phase_done("5 mip render")
 
   # 6. zip slice
-  k2_launches = zip_slice(torch, scene, views, view_rays, card)
+  zip_slice(torch, scene, views, view_rays, card)
+  phase_done("6 zip render")
 
   # 7b. train slice
   train_counts, _ = train_slice(torch, scene, card)
   log(f"  K1 launches: mip render {launches}, train {train_counts}")
+  phase_done("7b mip train")
 
-  main_case = results["fine trunk_1..4"]
-  f32_err = max(results[c[0]]["err"] for c in cases if c[4] == f32)
+  # 8. zip train slice
+  zip_counts, _ = zip_train_slice(torch, scene, card)
+  phase_done("8 zip train")
+  log(f"[phases] {' '.join(f'{k}: {v:.1f} s' for k, v in phase_secs.items())}"
+      f"; total {sum(phase_secs.values()):.1f} s")
+
+  # Each kernel with the launches of its path (the mip train step for K1,
+  # the zip train step for K2 and its scatter-add, the survey for the
+  # probes), its error, times and bound at the path's shapes.
+  def entry(name, source, replaces, launches, err, r, library=True):
+    return {"name": name, "route": "cuda",
+            "source": f"snerf_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"] if library else None}
+
+  # K1 forward at fine trunk_1..4: 2 N D^2 L f32 products as 3xTF32, and
+  # x, W, b read and the output written once
+  n, d, nl = ROWS, 1024, 4
+  k1 = dict(results["fine trunk_1..4"])
+  k1["bound_ms"], k1["bound_by"] = bound_ms(
+      (2 * n * d + nl * d * d + nl * d) * 4, 2.0 * n * d * d * nl,
+      F32_MMA_RATE)
+  # K1's backward kernels alone at one fine-trunk layer (N = fine_rows);
+  # the reduce sums the wgrad partials (wgrad_splits of D x D + D)
+  n = fine_rows
+  splits = fm.wgrad_splits(
+      n, d, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+  kb = {k: dict(v) for k, v in kresults.items()}
+  for name, nbytes, flops, rate in (
+      ("fused_mlp_bwd_dgrad", (3 * n * d + d * d) * 4, 2.0 * n * d * d,
+       F32_MMA_RATE),
+      ("fused_mlp_bwd_wgrad", (2 * n * d + d * d + d) * 4, 2.0 * n * d * d,
+       F32_MMA_RATE),
+      ("fused_mlp_bwd_reduce", (splits + 1) * (d * d + d) * 4,
+       splits * (d * d + d), F32_RATE)):
+    kb[name]["bound_ms"], kb[name]["bound_by"] = bound_ms(nbytes, flops,
+                                                          rate)
   # the backward kernels stand for K1's custom VJP, _fused_bwd: XLA
   # einsums there, with no pallas_call of its own
-  bwd = [{
-      "name": name, "route": "cuda",
-      "source": "snerf_tpu_torch/csrc/fused_mlp.cu",
-      "replaces": "snerf_tpu/ops/pallas/fused_mlp.py:104",
-      "launches": train_counts[name], "max_abs_err": kresults[name]["err"],
-      "ms": kresults[name]["ms"], "plain_ms": kresults[name]["plain_ms"]}
-         for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
-                      "fused_mlp_bwd_reduce")]
-  log(json.dumps({"kernels": [{
-      "name": "fused_mlp", "route": "cuda",
-      "source": "snerf_tpu_torch/csrc/fused_mlp.cu",
-      "replaces": "snerf_tpu/ops/pallas/fused_mlp.py:66",
-      "launches": train_counts["fused_mlp"], "max_abs_err": f32_err,
-      "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}, *bwd, {
-      "name": "hash_gather", "route": "cuda",
-      "source": "snerf_tpu_torch/csrc/hash_gather.cu",
-      "replaces": "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
-      "launches": k2_launches,
-      "max_abs_err": max(r["err"] for r in gresults.values()),
-      "ms": gresults["nerf level"]["ms"],
-      "plain_ms": gresults["nerf level"]["plain_ms"]}]}))
+  kernels = [entry("fused_mlp", "fused_mlp.cu",
+                   "snerf_tpu/ops/pallas/fused_mlp.py:66",
+                   train_counts["fused_mlp"],
+                   max(results[c[0]]["err"] for c in cases if c[4] == f32),
+                   k1, library=False)]
+  kernels += [entry(name, "fused_mlp.cu",
+                    "snerf_tpu/ops/pallas/fused_mlp.py:104",
+                    train_counts[name], kresults[name]["err"], kb[name],
+                    library=False)
+              for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
+                           "fused_mlp_bwd_reduce")]
+  kernels.append(entry(
+      "hash_gather", "hash_gather.cu",
+      "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
+      zip_counts["hash_gather"], max(r["err"] for r in gresults.values()),
+      gresults["nerf level 9, train batch"]))
+  kernels.append(entry(
+      "hash_scatter_add", "hash_gather.cu",
+      "snerf_tpu/ops/pallas/hash_gather_dense.py:91",
+      zip_counts["hash_scatter_add"],
+      max(r["abs_err"] for r in sresults.values()),
+      sresults["nerf level 9 (hashed)"]))
+  kernels.append(entry(
+      "probe_take_along_axis", "gather_probe.cu",
+      "scripts/probe_gather.py:23", probe_counts["probe_take_along_axis"],
+      max(r["err"] for k, r in presults.items() if k.startswith("P1")),
+      presults["P1 axis 1 64x131072"]))
+  kernels.append(entry(
+      "probe_gather_select", "gather_probe.cu",
+      "scripts/probe_hash_ops.py:92", probe_counts["probe_gather_select"],
+      max(r["err"] for k, r in presults.items() if k.startswith("P2")),
+      presults[f"P2 8x4992 {1 << 17}"]))
+  log(json.dumps({"kernels": kernels}))
   log(card)
   log(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,
       "count": torch.cuda.device_count()}}))
   return 0
-
 
 if __name__ == "__main__":
   sys.exit(main())

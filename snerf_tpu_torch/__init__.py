@@ -1,19 +1,23 @@
 """snerf_tpu_torch: the PyTorch / CUDA port of snerf_tpu for one NVIDIA H100.
 
 It mirrors snerf_tpu's module paths and is held against that package in
-tests/test_torch_*.py. It imports torch and never jax; from snerf_tpu it
-imports only the flag dataclass in snerf_tpu.config.
+tests/test_torch_*.py. It imports torch and never jax, and nothing of
+snerf_tpu: what it needs of a JAX-free module there (the flag dataclass,
+the scene) it keeps as its own copy.
 
   ops/       math (lr schedule, grad clipping), rays, coord, mip, sampling,
              stepfun, render, lie; fused_mlp (K1, forward and backward),
-             hash_ops (K2)
+             hash_ops (K2 gather and its scatter-add backward)
   csrc/      CUDA C++ kernels for sm_90a, built at first use
   models/    NerfMLP / ProposalMLP, the mip model (eval and randomized
              training forward), LearnPose; HashEncoding and the zip
-             model (eval, hash arm)
+             model (hash arm, eval and randomized training forward)
   data/      pinhole ray generation, Scene, the synthetic scene, the
              training-batch sampler
-  train/     chunked image rendering; the mip loss set and train step
+  train/     chunked image rendering; the mip and zip loss sets and train
+             steps
+  probes/    the gather probes (P1, P2) and the primitive survey
   utils/     flax -> torch weight bridges, seeded inits
-  config.py  model and train configs from snerf_tpu.config.Config
+  flags.py   the flag dataclass and its config-file / CLI parser
+  config.py  model and train configs from flags.Config
 """

@@ -1,21 +1,21 @@
-"""Config adapters: the port's model configs from the shared flag
-dataclass.
-
-`snerf_tpu.config.Config` is plain Python and imports no JAX, so the port
-reuses it. Its own `Config.model_config()`, `Config.train_config()` and
-`Config.zip_model_config()` import jax, hence these counterparts.
+"""Config adapters: the port's model and train configs from the flag
+dataclass (`snerf_tpu_torch/flags.py`, the port's copy of
+snerf_tpu/config.py's `Config` and parser), counterparts of the JAX
+`Config.model_config()`, `train_config()`, `zip_model_config()` and
+`zip_train_config()`.
 """
 
 from __future__ import annotations
 
 from typing import TYPE_CHECKING
 
-from snerf_tpu.config import Config, load_config  # noqa: F401 (re-export)
+from snerf_tpu_torch.flags import Config, load_config  # noqa: F401 (re-export)
 from snerf_tpu_torch.models.mipnerf import MipNerfConfig
 from snerf_tpu_torch.models.zipnerf import ZipNerfConfig
 
 if TYPE_CHECKING:
   from snerf_tpu_torch.train.trainer import TrainConfig
+  from snerf_tpu_torch.train.zip_trainer import ZipTrainConfig
 
 _T_TRANSFORM = {0: "log", 1: "disparity", 2: "linear"}
 
@@ -88,3 +88,37 @@ def zip_model_config(cfg: Config) -> ZipNerfConfig:
       prop_grid_resolutions=tuple(cfg.zip_prop_grid_resolutions),
       nerf_grid_resolution=cfg.zip_nerf_grid_resolution,
       use_semantic=cfg.semantic, class_num=cfg.semantic_class_num)
+
+
+def zip_train_config(cfg: Config) -> ZipTrainConfig:
+  """ZipTrainConfig as `Config.zip_train_config()` builds it, with its
+  encoder-aware lr rule: 0.01 is the hash-table schedule; for an encoder
+  other than hash, flags left at their defaults become lr 0.002 -> 0.0002
+  and encoder_lr_mult 4."""
+  from snerf_tpu_torch.train.zip_trainer import ZipTrainConfig
+  lr_init, lr_final = cfg.zip_lr_init, cfg.zip_lr_final
+  enc_mult = cfg.zip_encoder_lr_mult
+  if cfg.zip_encoder != "hash":
+    if lr_init == Config.zip_lr_init:
+      lr_init = 0.002
+    if lr_final == Config.zip_lr_final:
+      lr_final = 0.0002
+    if enc_mult == Config.zip_encoder_lr_mult:
+      enc_mult = 4.0
+  return ZipTrainConfig(
+      batch_size=cfg.zip_batch_size, max_steps=cfg.zip_max_steps,
+      lr_init=lr_init, lr_final=lr_final, lr_delay_steps=cfg.zip_lr_delay,
+      anti_interlevel_loss_mult=cfg.anti_interlevel_loss_mult,
+      distortion_loss_mult=cfg.distortion_loss_mult,
+      hash_decay_mult=cfg.hash_decay_mult,
+      depth_loss_mult=cfg.zip_depth_loss_mult,
+      depth_complete=(cfg.dataset_type == "waymo"),
+      semantic_loss_mult=(cfg.zip_semantic_loss_mult if cfg.semantic
+                          else 0.0),
+      patch_size=cfg.zip_patch_size,
+      smoothness_loss_mult=cfg.zip_smoothness_loss_mult,
+      semantic_smoothness_loss_mult=cfg.zip_semantic_smoothness_loss_mult,
+      encoder_lr_mult=enc_mult,
+      encoder_level_lr_gamma=cfg.zip_encoder_level_lr_gamma,
+      encoder_grad_max_norm=cfg.zip_encoder_grad_max_norm,
+      ema_decay=cfg.zip_ema_decay, randomized=cfg.randomized)

@@ -1,11 +1,23 @@
 """Multiresolution hash-grid encoder, instant-NGP style (counterpart of
-snerf_tpu/models/hashgrid.py), forward only.
+snerf_tpu/models/hashgrid.py), and its hash-decay regulariser.
 
 The level layout, the xor-prime hash and the dense stride indexing are
-the JAX module's, bit for bit. Each level's table rows are fetched by one
-row gather (`ops/hash_ops.gather_rows`, kernel K2 on the GPU), the same
-kernel for dense and hashed levels. `hash_decay_loss` and
-`total_variation_loss` belong to the trainer and are not ported yet.
+the JAX module's, bit for bit. The table is split once into its levels
+(one `torch.split`), and each level's rows are fetched from its own slice
+with level-local indices by one row gather (`ops/hash_ops.gather_rows`,
+kernel K2 on the GPU), the same kernel for dense and hashed levels. When
+the table requires grad, the gather's backward is one scatter-add per
+level (the scatter-add kernel on the GPU) into a gradient of that level's
+rows only, and the split's backward writes the table's gradient once.
+
+What the backward keeps: the JAX encoder recomputes each level's indices
+and weights under `jax.checkpoint`; here autograd keeps them, the [N, 8]
+int32 indices (in the gather) and the [N, 8] trilinear weights (in the
+blend), 64 bytes a point and level, and never the gathered rows. That
+fits the card at the shipped batch (PERF.md), so nothing is recomputed.
+When the positions carry grad (pose refinement), the blend also keeps the
+rows and the grad reaches the positions through the weights.
+`total_variation_loss` is not ported yet.
 """
 
 from __future__ import annotations
@@ -106,20 +118,23 @@ def _level_indices(c0: torch.Tensor, resolution: int, size: int):
 
 
 def _level_rows_weights(xf: torch.Tensor, spec: GridSpec, lvl: int):
-  """(row indices [N, 8] int32, trilinear weights [N, 8]) for one level."""
+  """(level-local row indices [N, 8] int32, trilinear weights [N, 8]) for
+  one level; the JAX module's table rows are these plus offsets[lvl]."""
   pos = xf * spec.scales[lvl] + 0.5
   c0 = torch.floor(pos)
   frac = pos - c0
   idx = _level_indices(c0.long(), spec.resolutions[lvl], spec.sizes[lvl])
   w = _corner_product(torch.stack([1.0 - frac, frac], dim=1), torch.mul)
-  return (spec.offsets[lvl] + idx).int(), w
+  return idx.int(), w
 
 
-def hash_encode_level(xf: torch.Tensor, table: torch.Tensor, spec: GridSpec,
-                      lvl: int, gather_fn: GatherFn = gather_rows):
-  """Trilinear features of ONE level for flat x [N, 3] in [0, 1]^3."""
+def hash_encode_level(xf: torch.Tensor, level_table: torch.Tensor,
+                      spec: GridSpec, lvl: int,
+                      gather_fn: GatherFn = gather_rows):
+  """Trilinear features of ONE level for flat x [N, 3] in [0, 1]^3, from
+  that level's rows level_table [sizes[lvl], C]."""
   idx, w = _level_rows_weights(xf, spec, lvl)
-  rows = gather_fn(table, idx)                               # [N, 8, C]
+  rows = gather_fn(level_table, idx)                         # [N, 8, C]
   return (w[..., None] * rows).sum(dim=1)
 
 
@@ -133,7 +148,8 @@ def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: GridSpec,
   batch_shape = x.shape[:-1]
   xf = x.reshape(-1, 3)
   oob = torch.any((xf < 0) | (xf > 1), dim=-1)
-  out = torch.stack([hash_encode_level(xf, table, spec, lvl, gather_fn)
+  levels = torch.split(table, list(spec.sizes))
+  out = torch.stack([hash_encode_level(xf, levels[lvl], spec, lvl, gather_fn)
                      for lvl in range(spec.num_levels)], dim=-2)
   out = torch.where(oob[:, None, None], 0.0, out)
   return out.reshape(*batch_shape, spec.num_levels, spec.level_dim)
@@ -163,3 +179,16 @@ class HashEncoding(nn.Module):
 
   def forward(self, x):
     return hash_encode(x, self.embeddings, self.spec, self.gather_fn)
+
+
+def hash_decay_loss(table: torch.Tensor, spec: GridSpec,
+                    weight: float = 0.1) -> torch.Tensor:
+  """Mean squared table row per level, summed over levels, times weight.
+
+  The levels are taken with one `torch.split`, whose backward writes the
+  table's gradient once (a slice per level would allocate a table-sized
+  zero gradient per level)."""
+  total = table.new_zeros(())
+  for rows in torch.split(table, list(spec.sizes)):
+    total = total + torch.mean(torch.sum(rows ** 2, dim=-1))
+  return weight * total

@@ -1,5 +1,6 @@
-"""zip-nerf model, the S-NeRF++ background, eval mode (counterpart of
-snerf_tpu/models/zipnerf.py `ZipNerfModel.__call__` with rng=None).
+"""zip-nerf model, the S-NeRF++ background (counterpart of
+snerf_tpu/models/zipnerf.py `ZipNerfModel.__call__`): the deterministic
+eval forward (JAX rng=None) and the randomized training forward.
 
 The hash-grid encoder arm (`encoder_type = "hash"`, the reference's) is
 ported; its MLPs run float32. Parameter names follow the reference torch
@@ -7,11 +8,18 @@ model (`{prop_mlp_i,nerf_mlp}.encoder.embeddings`, `.density_layer.0/.2`,
 `.lin_second_stage_{i}`, `.rgb_layer`), the layout
 snerf_tpu/utils/ref_import.py `map_zip_state_dict` decodes.
 
+The training forward takes `train_frac` (the Schlick anneal of the
+resampling logits) and its random draws as a `ZipDraws`, one entry per
+level: the single-jitter interval sampling, the multisample rotations,
+the density noise and the random background. JAX draws them from a PRNG
+key, which torch cannot reproduce, so they come from a torch.Generator
+(`make_zip_draws`) or are injected, as the tests inject JAX's own.
+`stop_level_grad` detaches each level's intervals. The forward returns
+the `ray_history` (sdist, tdist, weights, density) the losses read.
+
 Not ported yet: the other encoder arms (ipe, cp, cp_hash, cp_tri,
 mipcast), the GLO embedding, density and predicted normals, IDE and
-reflections, roughness, density noise and the randomized training branch
-(the jittered samples and multisample rotations enter through the
-injected `rand` arguments of ops/stepfun.py and ops/render.py).
+reflections, roughness, and a bf16 compute dtype.
 """
 
 from __future__ import annotations
@@ -32,12 +40,14 @@ from snerf_tpu_torch.ops.rays import Rays
 @dataclasses.dataclass(frozen=True)
 class ZipNerfConfig:
   """Static hyperparameters of the hash arm; the fields and defaults of the
-  JAX ZipNerfConfig that its eval path reads (anneal_slope and
-  single_jitter act only in training and wait for the trainer)."""
+  JAX ZipNerfConfig that its eval and training forwards read."""
   num_prop_samples: Tuple[int, ...] = (64, 64)
   num_nerf_samples: int = 32
   num_levels: int = 3
   bg_intensity_range: Tuple[float, float] = (1.0, 1.0)
+  anneal_slope: float = 10.0
+  stop_level_grad: bool = True
+  single_jitter: bool = True
   use_viewdirs: bool = True
   raydist_fn: str = "power_transformation"
   power_lambda: float = -1.5
@@ -53,6 +63,7 @@ class ZipNerfConfig:
   net_width_viewdirs: int = 256
   deg_view: int = 1
   density_bias: float = -1.0
+  density_noise: float = 0.0
   rgb_padding: float = 0.001
   prop_grid_resolutions: Tuple[int, ...] = (512, 2048)
   prop_grid_level_dim: int = 1
@@ -89,6 +100,49 @@ class ZipNerfConfig:
         ("enable_pred_roughness", self.enable_pred_roughness)) if on]
     if unported:
       raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+
+  def level_samples(self, i_level: int) -> int:
+    """Intervals drawn at level i_level."""
+    return (self.num_prop_samples[i_level] if i_level < self.num_levels - 1
+            else self.num_nerf_samples)
+
+
+@dataclasses.dataclass
+class ZipDraws:
+  """The random draws of one randomized forward, one tensor per level:
+
+  jitter: uniform [0, 1) [*batch, 1] (single_jitter) or [*batch, S], the
+    interval sampling's jitter (JAX keys[2 i]);
+  rotation: uniform [0, 1) [*batch, S, sample_n], the multisample
+    rotations, 2 pi each (keys[2 i + 1]);
+  noise: standard normals [*batch, S] added to the raw density times
+    density_noise (keys[2 i + 1]), or None when density_noise is 0;
+  bg: uniform [0, 1) [*batch, 3], the background colour as a fraction of
+    bg_intensity_range (keys[2 i]), or None when the range is one value.
+  S is the level's interval count, `ZipNerfConfig.level_samples(i)`.
+  """
+  jitter: List[torch.Tensor]
+  rotation: List[torch.Tensor]
+  noise: Optional[List[torch.Tensor]] = None
+  bg: Optional[List[torch.Tensor]] = None
+
+
+def make_zip_draws(config: ZipNerfConfig, batch_shape,
+                   generator: torch.Generator) -> ZipDraws:
+  """Draw a ZipDraws from `generator`, on the generator's device (the
+  model's)."""
+  batch = tuple(batch_shape)
+  kw = dict(generator=generator, device=generator.device)
+  levels = [config.level_samples(i) for i in range(config.num_levels)]
+  lo, hi = config.bg_intensity_range
+  return ZipDraws(
+      jitter=[torch.rand(*batch, 1 if config.single_jitter else s, **kw)
+              for s in levels],
+      rotation=[torch.rand(*batch, s, config.sample_n, **kw)
+                for s in levels],
+      noise=([torch.randn(*batch, s, **kw) for s in levels]
+             if config.density_noise > 0 else None),
+      bg=None if lo == hi else [torch.rand(*batch, 3, **kw) for _ in levels])
 
 
 class ZipMLP(nn.Module):
@@ -127,11 +181,12 @@ class ZipMLP(nn.Module):
     return [getattr(self, f"lin_second_stage_{i}")
             for i in range(self.config.net_depth_viewdirs)]
 
-  def predict_density(self, means, stds):
+  def predict_density(self, means, stds, noise=None):
     """means [..., n, 3], stds [..., n] -> (raw_density [...], x [..., W]).
 
     Contract -> [0,1]^3 -> hash features [..., n, L, C], erf-downweighted
-    mean over the n multisamples.
+    mean over the n multisamples. noise: standard normals [...] added to
+    the raw density times density_noise, or None.
     """
     c = self.config
     z, new_std = coord.contract_mean_std(means * c.scene_scale,
@@ -144,13 +199,18 @@ class ZipMLP(nn.Module):
         8.0 * (new_std[..., None] * g / 2.0) ** 2 + 1e-20))
     feats = (feats * w[..., None]).mean(dim=-3)              # mean over n
     x = self.density_layer(feats.reshape(*feats.shape[:-2], -1))
-    return x[..., 0], x
+    raw_density = x[..., 0]
+    if noise is not None and c.density_noise > 0:
+      raw_density = raw_density + c.density_noise * noise
+    return raw_density, x
 
-  def forward(self, means, stds, viewdirs: Optional[torch.Tensor] = None):
+  def forward(self, means, stds, viewdirs: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None):
     """Returns dict(density [...], rgb [..., 3], semantic [..., K] or
-    None) for multisampled Gaussians means [..., n, 3], stds [..., n]."""
+    None) for multisampled Gaussians means [..., n, 3], stds [..., n];
+    noise as in `predict_density`."""
     c = self.config
-    raw_density, x = self.predict_density(means, stds)
+    raw_density, x = self.predict_density(means, stds, noise)
     density = F.softplus(raw_density + c.density_bias)
     if self.disable_rgb:
       return dict(density=density, rgb=density.new_zeros(*density.shape, 3),
@@ -198,14 +258,24 @@ class ZipNerfModel(nn.Module):
     return [getattr(self, f"prop_mlp_{i}")
             for i in range(self.config.num_levels - 1)] + [self.nerf_mlp]
 
-  def forward(self, rays: Rays):
-    """Render a ray batch deterministically (the JAX rng=None mode).
+  def forward(self, rays: Rays, draws: Optional[ZipDraws] = None,
+              train_frac: float = 1.0):
+    """Render a ray batch: deterministically (the JAX rng=None mode) when
+    `draws` is None, else the randomized training forward with those
+    draws. train_frac in [0, 1] sets the anneal of the resampling logits
+    (1 at eval).
 
     rays: [..., 1] near/far. Returns (renderings, ray_history), one dict
     per level: renderings hold rgb/depth/acc (+ semantic on the last
     level), ray_history sdist/tdist/weights/density.
     """
     c = self.config
+    if c.anneal_slope > 0:
+      # Schlick bias; exactly 1 at train_frac = 1
+      anneal = (c.anneal_slope * train_frac) / (
+          (c.anneal_slope - 1) * train_frac + 1)
+    else:
+      anneal = 1.0
     _, s_to_t = coord.construct_ray_warps(c.raydist_fn, rays.near, rays.far,
                                           lam=c.power_lambda)
     init_s_near, init_s_far = 0.0, 1.0
@@ -217,8 +287,7 @@ class ZipNerfModel(nn.Module):
     renderings, ray_history = [], []
     for i_level, mlp in enumerate(self.mlps()):
       is_prop = i_level < c.num_levels - 1
-      num_samples = (c.num_prop_samples[i_level] if is_prop
-                     else c.num_nerf_samples)
+      num_samples = c.level_samples(i_level)
       dilation = (c.dilation_bias + c.dilation_multiplier *
                   (init_s_far - init_s_near) / prod_num_samples)
       prod_num_samples *= num_samples
@@ -228,27 +297,37 @@ class ZipNerfModel(nn.Module):
             renormalize=True)
         sdist = sdist[..., 1:-1]
         weights = weights[..., 1:-1]
-      # The JAX model scales these logits by the Schlick anneal factor,
-      # which is exactly 1 at train_frac = 1, the eval setting.
       logits_resample = torch.where(
           sdist[..., 1:] > sdist[..., :-1],
-          torch.log(weights + c.resample_padding + 1e-30), -float("inf"))
+          anneal * torch.log(weights + c.resample_padding + 1e-30),
+          -float("inf"))
       sdist = stepfun.sample_intervals(
           sdist, logits_resample, num_samples,
-          domain=(init_s_near, init_s_far))
+          single_jitter=c.single_jitter, domain=(init_s_near, init_s_far),
+          rand=None if draws is None else draws.jitter[i_level])
+      if c.stop_level_grad:
+        sdist = sdist.detach()
       tdist = s_to_t(sdist)
       means, stds = render.cast_rays_multisample(
           tdist, rays.origins, rays.directions, rays.radii[..., 0], base_x,
-          base_y, n=c.sample_n, m=c.sample_m, std_scale=c.std_scale)
+          base_y, n=c.sample_n, m=c.sample_m, std_scale=c.std_scale,
+          rand=None if draws is None else draws.rotation[i_level])
       ray_results = mlp(
           means, stds,
           viewdirs=rays.viewdirs if (c.use_viewdirs and not is_prop)
-          else None)
+          else None,
+          noise=None if draws is None or draws.noise is None
+          else draws.noise[i_level])
       weights = render.compute_alpha_weights(
           ray_results["density"], tdist, rays.directions,
           opaque_background=c.opaque_background)[0]
       lo, hi = c.bg_intensity_range
-      bg_rgbs = lo if lo == hi else (lo + hi) / 2
+      if lo == hi:
+        bg_rgbs = lo
+      elif draws is None:
+        bg_rgbs = (lo + hi) / 2
+      else:
+        bg_rgbs = lo + draws.bg[i_level] * (hi - lo)
       renderings.append(render.volumetric_rendering_zip(
           ray_results["rgb"], weights, tdist, bg_rgbs, rays.far,
           semantic=ray_results["semantic"]))

@@ -85,6 +85,21 @@ def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
   return lib
 
 
+def on_cuda(what: str, *tensors) -> bool:
+  """The wrappers' device rule: False when every tensor is on the CPU (the
+  plain version runs), True when all are contiguous on one CUDA device
+  (the kernel launches); raises otherwise."""
+  if all(t.device.type == "cpu" for t in tensors):
+    return False
+  dev = tensors[0].device
+  if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    raise ValueError(f"{what}: tensors on {[str(t.device) for t in tensors]}"
+                     "; all must be on one CUDA device")
+  if not all(t.is_contiguous() for t in tensors):
+    raise ValueError(f"{what}: tensors must be contiguous")
+  return True
+
+
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
   """Raise if a kernel's C entry point returned a CUDA error."""
   if err != 0:

@@ -1,13 +1,18 @@
-"""Hash-grid table row gather, kernel K2 (counterpart of
-snerf_tpu/ops/hash_ops.py `gather_rows` and the Pallas kernel
-snerf_tpu/ops/pallas/hash_gather_dense.py), forward only.
+"""Hash-grid table row gather, kernel K2, and its scatter-add backward
+(counterpart of snerf_tpu/ops/hash_ops.py `gather_rows`,
+`scatter_add_rows` and `hash_gather`, and of the Pallas kernel
+snerf_tpu/ops/pallas/hash_gather_dense.py with its custom VJP).
 
 `gather_rows` launches the hand-written Hopper kernel in
 `snerf_tpu_torch/csrc/hash_gather.cu` for CUDA tensors and runs
 `gather_rows_plain` for CPU tensors. On the GPU one kernel serves every
 level, dense or hashed: the TPU kernel's table-size limit does not exist
-there. The kernel is built and loaded by `ops/_cuda.py`. The table's
-scatter-add backward belongs to the training path and is not ported yet.
+there. Under autograd (a table that requires grad) the gather goes
+through `HashGatherFunction`, whose backward is the scatter-add
+`scatter_add_rows`: the kernel in the same source for CUDA tensors,
+`scatter_add_rows_plain` (`index_add_`) for CPU tensors. Only the int32
+indices are saved for the backward, never the gathered rows. The kernels
+are built and loaded by `ops/_cuda.py`.
 """
 
 from __future__ import annotations
@@ -22,10 +27,10 @@ MAX_CHANNELS = 8
 
 
 def _bind(lib):
-  lib.snerf_gather_rows.argtypes = (
-      [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-      + [ctypes.c_void_p])
-  lib.snerf_gather_rows.restype = ctypes.c_int
+  for fn in (lib.snerf_gather_rows, lib.snerf_scatter_add_rows):
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def _check_shapes(table, idx):
@@ -36,8 +41,14 @@ def _check_shapes(table, idx):
     raise ValueError(f"idx must be int32, got {idx.dtype}")
 
 
+def _wants_grad(table):
+  return torch.is_grad_enabled() and table.requires_grad
+
+
 def gather_rows_plain(table, idx):
-  """table [T, C], idx int32 [...] -> [..., C]: `table[idx]`."""
+  """table [T, C], idx int32 [...] -> [..., C]: `table[idx]`. Under
+  autograd PyTorch's own backward of the indexing, an accumulating
+  scatter-add, makes it the plain pair."""
   _check_shapes(table, idx)
   return table[idx.long()]
 
@@ -48,23 +59,18 @@ def gather_rows(table, idx):
   Precondition: every index lies in [0, T); the hash encoder builds them
   so (level offset + stride or hash modulo the level size), and neither
   version checks it. CPU tensors run `gather_rows_plain`. CUDA tensors
-  launch the kernel (table and idx contiguous on one device, C <= 8, no
-  autograd through the table) or raise; `gather_rows.launches` counts the
-  launches.
+  launch the kernel (table and idx contiguous on one device, C <= 8) or
+  raise; `gather_rows.launches` counts the launches. A table that
+  requires grad goes through `HashGatherFunction` (backward:
+  `scatter_add_rows`).
   """
   _check_shapes(table, idx)
-  if table.device.type == "cpu" and idx.device.type == "cpu":
-    return gather_rows_plain(table, idx)
-  if table.device.type != "cuda" or idx.device != table.device:
-    raise ValueError(f"gather_rows: table on {table.device}, idx on "
-                     f"{idx.device}; both must be on one CUDA device")
+  if _wants_grad(table):
+    return HashGatherFunction.apply(table, idx)
+  if not _cuda.on_cuda("gather_rows", table, idx):
+    return table[idx.long()]
   if table.dtype != torch.float32:
     raise ValueError(f"gather_rows: table dtype {table.dtype} not supported")
-  if not (table.is_contiguous() and idx.is_contiguous()):
-    raise ValueError("gather_rows: table and idx must be contiguous")
-  if torch.is_grad_enabled() and table.requires_grad:
-    raise RuntimeError("gather_rows: the CUDA kernel is forward-only; run it "
-                       "under torch.no_grad() or torch.inference_mode()")
   c = table.shape[1]
   out = torch.empty(*idx.shape, c, dtype=table.dtype, device=table.device)
   n = idx.numel()
@@ -81,3 +87,74 @@ def gather_rows(table, idx):
 
 
 gather_rows.launches = 0
+
+
+def _check_scatter(idx, g):
+  if idx.dtype != torch.int32 or idx.dim() != 1:
+    raise ValueError(f"idx must be int32 [Q], got {idx.dtype} "
+                     f"{tuple(idx.shape)}")
+  if g.dim() != 2 or g.shape[0] != idx.shape[0] or not (
+      1 <= g.shape[1] <= MAX_CHANNELS):
+    raise ValueError(f"g must be [Q, C<={MAX_CHANNELS}] with Q = "
+                     f"{idx.shape[0]}, got {tuple(g.shape)}")
+
+
+def scatter_add_rows_plain(idx, g, num_rows: int):
+  """dT [num_rows, C] with dT[idx[q]] += g[q]; idx int32 [Q], g [Q, C]:
+  `zeros.index_add_(0, idx, g)`."""
+  _check_scatter(idx, g)
+  return g.new_zeros(num_rows, g.shape[1]).index_add_(0, idx, g)
+
+
+def scatter_add_rows(idx, g, num_rows: int):
+  """dT [num_rows, C] float32 with dT[idx[q]] += g[q]; idx int32 [Q] with
+  every value in [0, num_rows), g float32 [Q, C].
+
+  CPU tensors run `scatter_add_rows_plain`. CUDA tensors launch the
+  scatter-add kernel into a zeroed dT (contiguous, C <= 8) or raise;
+  `scatter_add_rows.launches` counts the launches. The kernel adds with
+  atomics, so the order of the additions, and with it the last bits of
+  dT, changes from run to run.
+  """
+  _check_scatter(idx, g)
+  if not _cuda.on_cuda("scatter_add_rows", idx, g):
+    return scatter_add_rows_plain(idx, g, num_rows)
+  if g.dtype != torch.float32:
+    raise ValueError(f"scatter_add_rows: g dtype {g.dtype} not supported")
+  c = g.shape[1]
+  out = torch.zeros(num_rows, c, dtype=g.dtype, device=g.device)
+  n = idx.numel()
+  if n == 0:
+    return out
+  lib = _cuda.load("hash_gather", _bind)
+  err = lib.snerf_scatter_add_rows(
+      idx.data_ptr(), g.data_ptr(), out.data_ptr(), n, c, g.device.index,
+      torch.cuda.current_stream(g.device).cuda_stream)
+  _cuda.check_launch(lib, err, f"scatter_add_rows at T={num_rows} C={c} "
+                     f"N={n}")
+  scatter_add_rows.launches += 1
+  return out
+
+
+scatter_add_rows.launches = 0
+
+
+class HashGatherFunction(torch.autograd.Function):
+  """`table[idx]` differentiable in the table: forward `gather_rows` (K2),
+  backward `scatter_add_rows` into a zeroed [T, C] gradient. Saves only
+  idx. Counterpart of JAX `hash_ops.hash_gather` and of
+  `hash_gather_dense`'s custom VJP."""
+
+  @staticmethod
+  def forward(ctx, table, idx):
+    ctx.save_for_backward(idx)
+    ctx.num_rows = table.shape[0]
+    return gather_rows(table, idx)
+
+  @staticmethod
+  def backward(ctx, g):
+    idx, = ctx.saved_tensors
+    dtable = scatter_add_rows(idx.reshape(-1),
+                              g.reshape(-1, g.shape[-1]).contiguous(),
+                              ctx.num_rows)
+    return dtable, None

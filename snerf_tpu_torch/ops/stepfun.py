@@ -1,13 +1,13 @@
 """Step functions (counterpart of snerf_tpu/ops/stepfun.py): the
-resampling the zip eval render runs and the outer measure the mip
-proposal loss needs.
+resampling the zip render runs, the outer measure of the mip proposal
+loss, and the distortion loss and box blur of the zip trainer.
 
 The JAX samplers take a PRNG key. Here the random draw is injected:
 `rand=None` is the deterministic branch (the JAX `key=None`); otherwise
 `rand` holds the uniform [0, 1) draws of the documented shape. The sample
 grids come from torch.linspace, which can differ from jnp.linspace in the
-last ulp of a point. Of the losses only `lossfun_outer` is ported (the
-mip trainer's proposal loss); the zip losses wait for the zip trainer.
+last ulp of a point. Not ported: `weighted_percentile` and `resample`
+(nothing on the ported paths calls them).
 """
 
 from __future__ import annotations
@@ -147,3 +147,31 @@ def sample_intervals(t, w_logits, num_samples: int,
   first = torch.clamp(2 * centers[..., :1] - mid[..., :1], min=minval)
   last = torch.clamp(2 * centers[..., -1:] - mid[..., -1:], max=maxval)
   return torch.cat([first, mid, last], dim=-1)
+
+
+def lossfun_distortion(t, w):
+  """mip-360 distortion loss: iint w_i w_j |t_i - t_j| plus the intra-
+  interval term; t [..., S+1], w [..., S] -> [...]."""
+  ut = (t[..., 1:] + t[..., :-1]) / 2
+  dut = torch.abs(ut[..., :, None] - ut[..., None, :])
+  loss_inter = torch.sum(w * torch.sum(w[..., None, :] * dut, dim=-1), dim=-1)
+  loss_intra = torch.sum(w ** 2 * (t[..., 1:] - t[..., :-1]), dim=-1) / 3
+  return loss_inter + loss_intra
+
+
+def blur_stepfun(x, y, r: float):
+  """Convolve the step function (x, y) with a box filter of radius r.
+
+  Returns the blurred piecewise-linear function (xr [..., 2S+2], yr
+  [..., 2S+2]) at the union of the shifted knots. The knot order is a
+  stable argsort, as jnp.argsort's, so tied knots (x - r of one knot
+  equal to x + r of another) pair with the same slopes as in JAX.
+  """
+  knots = torch.cat([x - r, x + r], dim=-1)
+  xr, xr_idx = torch.sort(knots, dim=-1, stable=True)
+  zero = torch.zeros_like(y[..., :1])
+  y1 = (torch.cat([y, zero], dim=-1) - torch.cat([zero, y], dim=-1)) / (2 * r)
+  y2 = torch.gather(torch.cat([y1, -y1], dim=-1), -1, xr_idx[..., :-1])
+  yr = torch.clamp(torch.cumsum((xr[..., 1:] - xr[..., :-1])
+                                * torch.cumsum(y2, dim=-1), dim=-1), min=0)
+  return xr, torch.cat([torch.zeros_like(yr[..., :1]), yr], dim=-1)

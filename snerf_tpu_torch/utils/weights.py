@@ -5,9 +5,10 @@ snerf_tpu/utils/ref_import.py).
 package's mip and zip parameter trees (as numpy arrays) onto the port's
 state_dicts: the inverses of `snerf_tpu.utils.ref_import`'s
 `map_mip_state_dict` and `map_zip_state_dict`. `pose_params_from_flax`
-and `train_state_from_flax` carry a JAX train state's model and pose
-params across. `glorot_init_` and `zip_init_` are the port's own seeded
-inits, for machines without JAX.
+and `train_state_from_flax` carry a JAX mip train state's model and pose
+params across, `zip_train_state_from_flax` a zip train state's.
+`glorot_init_` and `zip_init_` are the port's own seeded inits, for
+machines without JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +74,22 @@ def train_state_from_flax(params: Dict[str, Any], pose_params=None):
   numbers."""
   return (state_dict_from_flax(params),
           None if pose_params is None else pose_params_from_flax(pose_params))
+
+
+def zip_train_state_from_flax(state, params: Dict[str, Any],
+                              pose_params=None, ema_params=None):
+  """Load a JAX zip train state's `params` (and `pose_params`,
+  `ema_params`, or None), as numpy trees, into the port's ZipTrainState
+  (from `create_zip_train_state`) in place, so that both start from the
+  same numbers. Returns the state."""
+  state.model.load_state_dict(zip_state_dict_from_flax(params))
+  if pose_params is not None:
+    state.pose_model.load_state_dict(pose_params_from_flax(pose_params))
+  if ema_params is not None:
+    device = next(state.model.parameters()).device
+    state.ema = {k: v.to(device) for k, v in
+                 zip_state_dict_from_flax(ema_params).items()}
+  return state
 
 
 @torch.no_grad()

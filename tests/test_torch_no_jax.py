@@ -1,6 +1,6 @@
-"""The port (the mip and zip render paths and the mip train step) runs
-where JAX is absent, and chip_smoke.py refuses to run without a CUDA card
-(each in a fresh interpreter)."""
+"""The port (the mip and zip render paths and both train steps) runs
+where JAX is absent and loads no module of snerf_tpu, and chip_smoke.py
+refuses to run without a CUDA card (each in a fresh interpreter)."""
 
 import os
 import shutil
@@ -77,10 +77,34 @@ tlosses = [float(tstep(tstate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in tlosses), tlosses
 assert tpose is not None and float(tpose.r.grad.abs().max()) > 0
 print("TRAINED", tstate.step)
+from snerf_tpu_torch.config import zip_train_config
+from snerf_tpu_torch.train.zip_trainer import (create_zip_train_state,
+                                               make_zip_train_step)
+
+zflags = load_config(["--config", "configs/waymo_zipnerf",
+                      "--zip_num_prop_samples", "(8, 8)",
+                      "--zip_num_nerf_samples", "8",
+                      "--zip_grid_num_levels", "4",
+                      "--zip_log2_hashmap_size", "12",
+                      "--zip_prop_grid_resolutions", "(64, 128)",
+                      "--zip_nerf_grid_resolution", "256",
+                      "--zip_bottleneck_width", "32", "--zip_batch_size", "32",
+                      "--zip_patch_size", "2", "--zip_lr_delay", "0"])
+zscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
+zscene.semantics = (zscene.depths > zscene.depths.mean()).astype("int32")
+zscene.skymask = zscene.depths > 1e9
+zstate = create_zip_train_state(0, zip_model_config(zflags),
+                                zip_train_config(zflags), zscene.num_images)
+zstep = make_zip_train_step(zstate.model, zip_train_config(zflags),
+                            scene_to_device(zscene, "cpu"), zscene.i_train,
+                            zscene.near, zscene.far)
+zlosses = [float(zstep(zstate, gen)["loss"]) for _ in range(2)]
+assert all(math.isfinite(v) for v in zlosses), zlosses
+assert zstate.step == 2
+print("ZIP TRAINED", zstate.step)
 jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
-    k.split(".")[0] in ("jax", "jaxlib", "flax")
-    or k.startswith("snerf_tpu.")))
-assert jax_side == ["snerf_tpu.config"], jax_side
+    k.split(".")[0] in ("jax", "jaxlib", "flax", "snerf_tpu")))
+assert jax_side == [], jax_side
 print("RENDERED", tuple(out["rgb"].shape))
 """
 
@@ -97,6 +121,7 @@ def test_port_imports_and_renders_with_jax_blocked():
   assert "RENDERED (4, 4, 3)" in proc.stdout
   assert "ZIP RENDERED (4, 4, 3)" in proc.stdout
   assert "TRAINED 2" in proc.stdout
+  assert "ZIP TRAINED 2" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
