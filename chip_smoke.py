@@ -7,9 +7,15 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. float32 numerics: TF32 off for matmuls and cuDNN;
   3. build: every kernel in csrc/, one nvcc process each, all at once;
-  4. kernel K1 against plain: the fused-MLP kernel against fused_mlp_plain
-     on the card at the mip render path's shapes, a ragged N, bf16, both
-     last_relu settings; max error beside its tolerance, CUDA-event times;
+     the ptxas lines (registers, spills); the SASS of K1's f32 forward
+     and dgrad kernels (cuobjdump -sass) must hold wgmma (HGMMA) and TMA
+     loads (UTMALDG);
+  4. kernel K1 against plain: tf32_split bit-equal to tf32_split_plain at
+     the fine and proposal trunks' weight shapes and on special values
+     (signed zeros, inf, NaN, subnormals, ties); the fused-MLP kernel
+     against fused_mlp_plain on the card at the mip render path's shapes,
+     a ragged N, bf16, both last_relu settings; max error beside its
+     tolerance, CUDA-event times, TFLOP/s and the share of the bound;
   4b. kernel K2 against plain: the hash-grid row gather against
      table[idx] at the zip paths' shapes (a hashed level's own 2^21 rows
      of the nerf and prop_mlp_1 tables at the render chunk of 8192 rays
@@ -32,7 +38,8 @@ Phases, each fatal on failure:
      make_eval_render_fn / render_image (chunk 4096); the outputs must be
      finite with acc in [0, 1], K1 must have been launched, and one chunk
      must agree with a model sharing the weights whose MLP stacks run the
-     plain PyTorch version;
+     plain PyTorch version; one chunk is timed against that model and
+     broken down under torch.profiler;
   6. zip slice: the shipped waymo_zipnerf model (hash encoder) at full
      width with a seeded init renders the same 2 views through
      make_zip_eval_render_fn / render_image (chunk 8192); the outputs must
@@ -47,14 +54,17 @@ Phases, each fatal on failure:
      proposal trunk_1..3 at 524,288), a ragged N and no last ReLU; dx, dW,
      db within a tolerance of max|plain|, two runs bit-identical, the
      forward that keeps its layers bit-equal to the eval forward, CUDA-
-     event times and TFLOP/s in turns, each kernel alone against its
-     plain counterpart, and an autograd round trip through fused_mlp;
+     event times and TFLOP/s in turns, each kernel alone (at a fine and
+     a proposal layer) against its plain counterpart and one PyTorch
+     call (dz @ w.T for dgrad, act.T @ dz for wgrad, TF32 off), and an
+     autograd round trip through fused_mlp;
   7b. train slice: the shipped nuScenes_depth_6cams training step at
      full width (depth_conf off, lrate_delay 0) on the same synthetic
      scene, N_rgb 4096, seeded: 2 warm-up and 24 timed steps (s/step,
      rays/s, peak memory, K1 launches per step against the expected
-     counts), finite and falling loss, a torch.profiler breakdown of one
-     step, and one step against the same weights and draws with the
+     counts, tf32_split one a forward), finite and falling loss, a
+     torch.profiler breakdown of one step, and one step against the
+     same weights and draws with the
      stacks' backward plain (every grad within STEP_BWD_TOL) and with
      plain stacks (loss, metrics, every grad), and a non-zero pose grad;
   8. zip train slice: the shipped waymo_zipnerf training step at full
@@ -68,8 +78,8 @@ Phases, each fatal on failure:
      every grad, each hash level's apart, within ZIP_STEP_GRAD_TOL, which
      must sit below the weakest fault reading of the run.
 Each phase prints its seconds. The kernels line lists every kernel with
-its path's launch counts (the mip train step for fused_mlp and its three
-backward kernels, the zip train step for hash_gather and
+its path's launch counts (the mip train step for fused_mlp, tf32_split
+and the three backward kernels, the zip train step for hash_gather and
 hash_scatter_add, the survey for the probes), its time at the path's
 shapes beside its plain version's, its bound (the larger of its bytes
 over HBM_RATE and its operations over their peak rate) and the time of
@@ -83,6 +93,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,7 +102,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 4096 * 128          # one chunk of rays x 128 samples
 # (atol, rtol). f32: the kernel's 3xTF32 products are ~2^-21 relative, but
 # the tensor cores' f32 accumulation truncates; over 384 MMA steps a row
-# (D = 1024) that drifts ~3e-5 on O(1) outputs.
+# (D = 1024) that drifts ~3e-5 on O(1) outputs. On an H100 the wgmma
+# kernel reads at most 3.0e-5 (fine trunk_6..7), a control build whose
+# forward drops the two small-term products (1xTF32) 6.5e-4 to 9.0e-4
+# on every f32 case: the limit sits between.
 F32_TOL = (1e-4, 1e-4)
 BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
 # K1's backward against fused_mlp_bwd_plain, as a fraction of max|plain|
@@ -101,12 +115,15 @@ BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
 # H100 the sound kernels read at most 2.8e-5 (dx, fine trunk_1..4), a
 # control build that drops the small-term MMAs of 3xTF32 (plain 1xTF32)
 # 1.7e-4 to 6.2e-4 on every tensor (3.9e-4 on dx at L = 2): the limit
-# sits between.
+# sits between. The same holds with the wgmma dgrad: its 1xTF32 control
+# (wgrad left 3xTF32) reads 3.8e-4 to 6.2e-4 on dx and at least 1.7e-4
+# on every dW and db downstream of it.
 BWD_TOL = 1e-4
 # The train slice: warm-up and timed steps, and K1's launches per step:
 # forward, one for each uniform run (fine trunk_1..4 and trunk_6..7,
-# proposal trunk_1..3); dgrad, wgrad and reduce, one per layer of those
-# runs, 4 + 2 + 3 (every run's input carries grad, so layer 0 gets dgrad).
+# proposal trunk_1..3), each with one tf32_split of its weights; dgrad,
+# wgrad and reduce, one per layer of those runs, 4 + 2 + 3 (every run's
+# input carries grad, so layer 0 gets dgrad).
 TRAIN_WARMUP, TRAIN_STEPS = 2, 24
 K1_FWD_PER_STEP, K1_BWD_PER_STEP = 3, 9
 # One step of the kernel model against the same model whose stacks run
@@ -153,6 +170,7 @@ HBM_RATE = 3.35e12
 L2_BYTES = 50 * 2**20
 F32_RATE = 67e12
 F32_MMA_RATE = 495e12 / 3
+BF16_MMA_RATE = 989e12
 # The scatter-add kernel against an f64 index_add_ control, as a fraction
 # of max|control|. Atomics add in a new order on every run, and the plain
 # f32 index_add_ (atomic on CUDA too) is off the control by the same kind
@@ -241,18 +259,84 @@ def kernel_case(torch, fused_mlp, fused_mlp_plain, name, n, d, n_layers,
   p2 = time_ms(torch, lambda: fused_mlp_plain(x, w, b, last_relu), iters)
   k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
   flop = 2.0 * n * d * d * n_layers
+  # x, W, b read and the output written once; f32 products as 3xTF32
+  size = 4 if dtype == torch.float32 else 2
+  b_ms, b_by = bound_ms((2 * n * d + n_layers * d * d + n_layers * d) * size,
+                        flop, F32_MMA_RATE if size == 4 else BF16_MMA_RATE)
   log(f"  {name}: N={n} D={d} L={n_layers} {str(dtype)[6:]} "
       f"last_relu={last_relu}: max_abs_err={err:.3e} (max|plain| "
       f"{scale:.3e}) "
       f"(tol atol={atol} rtol={rtol}) kernel {k_ms:.3f} ms "
-      f"({flop / k_ms / 1e9:.1f} TFLOP/s) plain {p_ms:.3f} ms "
+      f"({flop / k_ms / 1e9:.1f} TFLOP/s, bound {b_ms:.3f} ms ({b_by}), "
+      f"{100 * b_ms / k_ms:.1f}% of it) plain {p_ms:.3f} ms "
       f"({flop / p_ms / 1e9:.1f} TFLOP/s) [{k1:.3f}/{k2:.3f} vs "
       f"{p1:.3f}/{p2:.3f}]")
   check(finite, f"{name}: kernel output not finite")
   check(ok, f"{name}: kernel disagrees with plain (max abs err {err})")
   del x, w, b, got, want, diff
   torch.cuda.empty_cache()
-  return dict(err=err, ms=k_ms, plain_ms=p_ms)
+  return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _bits(torch, patterns):
+  """float32 tensor of the given 32-bit patterns."""
+  return torch.tensor([p - 2**32 if p >= 2**31 else p for p in patterns],
+                      dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+
+def split_phase(torch, fm, iters=20):
+  """tf32_split against tf32_split_plain on the card, bit for bit: random
+  weights at the fine trunk_1..4 ([4, 1024, 1024]) and proposal
+  trunk_1..3 ([3, 256, 256]) shapes, and a [1, 128, 128] tile of special
+  values (signed zeros, inf, NaN payloads, subnormals, rounding ties, the
+  largest tie that carries into inf). CUDA-event times in turns at the
+  fine shape, both layouts, and the bytes bound (w read, four outputs
+  written once)."""
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  special = _bits(torch, [
+      0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+      0x7F800001, 0xFFC00000, 0x7FFFFFFF, 0x00000001, 0x00001000,
+      0x00003000, 0x807FF000, 0x00012345, 0x3F801000, 0xBF801000,
+      0x3F803000, 0x3F800FFF, 0x7F7FF000, 0xFF7FF000, 0x3F7FFFFF])
+  special = special.repeat(-(-128 * 128 // special.numel()))[:128 * 128]
+  cases = [("fine trunk_1..4 weights", 4, 1024), ("proposal trunk_1..3 "
+           "weights", 3, 256), ("special values", 1, 128)]
+
+  def both_layouts(pair):
+    big, small = pair
+    return (big, small, big.transpose(1, 2).contiguous(),
+            small.transpose(1, 2).contiguous())
+
+  res = {}
+  for name, n_layers, d in cases:
+    w = (special.reshape(1, 128, 128).cuda() if name == "special values"
+         else (torch.rand(n_layers, d, d, generator=gen, device="cuda")
+               * 2 - 1) * (6.0 / (2 * d)) ** 0.5)
+    got = fm.tf32_split(w)
+    want = both_layouts(fm.tf32_split_plain(w))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g.view(torch.int32), p.view(torch.int32))
+                for g, p in zip(got, want))
+    line = f"  tf32_split, {name} [{n_layers}, {d}, {d}]: bit-equal {equal}"
+    if name.startswith("fine"):
+      def plain():
+        return both_layouts(fm.tf32_split_plain(w))
+      p1 = time_ms(torch, plain, iters)
+      k1 = time_ms(torch, lambda: fm.tf32_split(w), iters)
+      k2 = time_ms(torch, lambda: fm.tf32_split(w), iters)
+      p2 = time_ms(torch, plain, iters)
+      k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+      b_ms, b_by = bound_ms(5 * w.numel() * 4)
+      line += (f"; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound "
+               f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_ms:.1f}% of it) "
+               f"[{k1:.4f}/{k2:.4f} vs {p1:.4f}/{p2:.4f}]")
+      res = dict(err=0.0 if equal else float("nan"), ms=k_ms, plain_ms=p_ms,
+                 bound_ms=b_ms, bound_by=b_by)
+    log(line)
+    check(equal, f"tf32_split differs from tf32_split_plain on {name}")
+    del w, got, want
+  torch.cuda.empty_cache()
+  return res
 
 
 def _rel_errs(got, want):
@@ -280,9 +364,10 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
     out, kept = fm._launch_fwd(x, w, b, last_relu, keep=True)
     bit_equal = torch.equal(out, fm.fused_mlp(x, w, b, last_relu))
   saved = ([] if kept is None else list(kept.unbind(0))) + [out]
-  got = fm.fused_mlp_bwd(x, w, b, saved, g, last_relu)
+  split = fm.tf32_split(w)[:2]  # made once, as the training forward does
+  got = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)
   want = fm.fused_mlp_bwd_plain(x, w, b, saved, g, last_relu)
-  again = fm.fused_mlp_bwd(x, w, b, saved, g, last_relu)
+  again = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)
   torch.cuda.synchronize()
   deterministic = all(torch.equal(p, q) for p, q in zip(got, again))
   errs = _rel_errs(got, want)
@@ -291,9 +376,9 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
   del got, want, again
   p1 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
                                                      last_relu), iters)
-  k1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g,
+  k1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, split,
                                                last_relu), iters)
-  k2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g,
+  k2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, split,
                                                last_relu), iters)
   p2 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
                                                      last_relu), iters)
@@ -306,7 +391,7 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
   # to 0 flips, and one flipped entry of the top layer moves a whole row
   # of dx by O(its size): that comparison is printed, not checked.
   masks = [a > 0 for a in saved]
-  del saved, kept, out
+  del saved, kept, out, split
   leaves = [t.clone().requires_grad_() for t in (x, w, b)]
   (fm.fused_mlp(*leaves, last_relu) * g).sum().backward()
   got = [t.grad for t in leaves]
@@ -360,9 +445,12 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
 
 def bwd_kernel_times(torch, fm, n, d, iters):
   """Each backward kernel alone at one fine-trunk layer against its plain
-  PyTorch counterpart: dgrad vs (dz @ w.T) * (mask > 0); wgrad plus its
-  reduce vs act.T @ dz and dz.sum(0); the reduce alone vs a sum over the
-  split axis. Max abs error and CUDA-event times in turns."""
+  PyTorch counterpart: dgrad (on the weight's split, made once) vs (dz @
+  w.T) * (mask > 0); wgrad plus its reduce vs act.T @ dz and dz.sum(0);
+  the reduce alone vs a sum over the split axis. Max abs error and
+  CUDA-event times in turns, and the time of one PyTorch call for the
+  product (TF32 off): torch.matmul(dz, w.t()), the unmasked dgrad of
+  layer 0, for dgrad; act.t() @ dz for wgrad."""
   gen = torch.Generator(device="cuda").manual_seed(11)
   dz = torch.randn(n, d, generator=gen, device="cuda")
   act = torch.relu(torch.randn(n, d, generator=gen, device="cuda"))
@@ -373,9 +461,10 @@ def bwd_kernel_times(torch, fm, n, d, iters):
   part_b = dz.new_empty(splits, d)
   out = torch.empty_like(dz)
   dw, db = dz.new_empty(d, d), dz.new_empty(d)
+  w_big, w_small = fm.tf32_split(w[None])[:2]
 
   def dgrad():
-    return fm.fused_mlp_bwd_dgrad(dz, w, act, out)
+    return fm.fused_mlp_bwd_dgrad(dz, w_big[0], w_small[0], act, out)
 
   def dgrad_plain():
     return (dz @ w.t()) * (act > 0)
@@ -394,6 +483,8 @@ def bwd_kernel_times(torch, fm, n, d, iters):
   def reduce_plain():
     return part_w.sum(0), part_b.sum(0)
 
+  library = {"fused_mlp_bwd_dgrad": lambda: torch.matmul(dz, w.t()),
+             "fused_mlp_bwd_wgrad": lambda: act.t() @ dz}
   res = {}
   for name, kern, plain, flop in (
       ("fused_mlp_bwd_dgrad", dgrad, dgrad_plain, 2.0 * n * d * d),
@@ -411,24 +502,28 @@ def bwd_kernel_times(torch, fm, n, d, iters):
     k2 = time_ms(torch, kern, iters)
     p2 = time_ms(torch, plain, iters)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    lib = time_ms(torch, library[name], iters) if name in library else None
     rate = (f" ({flop / k_ms / 1e9:.1f} vs {flop / p_ms / 1e9:.1f} TFLOP/s)"
             if flop else "")
+    lib_txt = (f", one PyTorch call {lib:.3f} ms ({flop / lib / 1e9:.1f} "
+               "TFLOP/s)" if lib else "")
     log(f"  {name} alone, N={n} D={d} (splits {splits} x {rows} rows): "
         f"max_abs_err {err:.2e} (max|plain| {scale:.2e}); kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{rate} [{k1:.3f}/{k2:.3f} vs "
-        f"{p1:.3f}/{p2:.3f}]")
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms{rate}{lib_txt} "
+        f"[{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]")
     check(err <= BWD_TOL * scale, f"{name} disagrees with plain: {err}")
-    res[name] = dict(err=err, ms=k_ms, plain_ms=p_ms)
-  del dz, act, w, part_w, part_b, out, dw, db
+    res[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib)
+  del dz, act, w, part_w, part_b, out, dw, db, w_big, w_small
   torch.cuda.empty_cache()
   return res
 
 
-def profile_step(torch, step_fn):
-  """Device time of one train step under torch.profiler, by kernel: K1
-  forward, dgrad, wgrad (+ its reduce), cuBLAS GEMMs, the optimizer
-  (kernels under Optimizer.step) and the rest (elementwise, sort,
-  reductions, copies); with the idle share against the host clock."""
+def profile_step(torch, step_fn, what="step"):
+  """Device time of one train step (or render chunk) under
+  torch.profiler, by kernel: K1 forward, its weight split, dgrad, wgrad
+  (+ its reduce), cuBLAS GEMMs, the optimizer (kernels under
+  Optimizer.step) and the rest (elementwise, sort, reductions, copies);
+  with the idle share against the host clock."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
@@ -441,8 +536,9 @@ def profile_step(torch, step_fn):
     wall_ms = (time.perf_counter() - t0) * 1e3
 
   def kind(name):
-    for key, label in (("fused_mlp_fwd_kernel", "K1 forward"),
-                       ("fused_mlp_bwd_dgrad", "K1 dgrad"),
+    for key, label in (("k1_wgmma_kernel<false>", "K1 forward"),
+                       ("tf32_split", "K1 tf32_split"),
+                       ("k1_wgmma_kernel<true>", "K1 dgrad"),
                        ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
                        ("fused_mlp_bwd_reduce", "K1 wgrad + reduce")):
       if key in name:
@@ -459,8 +555,9 @@ def profile_step(torch, step_fn):
     return False
 
   events = prof.events()
-  out = {k: 0.0 for k in ("K1 forward", "K1 dgrad", "K1 wgrad + reduce",
-                          "matmul (cuBLAS)", "optimizer (Adam)")}
+  out = {k: 0.0 for k in ("K1 forward", "K1 tf32_split", "K1 dgrad",
+                          "K1 wgrad + reduce", "matmul (cuBLAS)",
+                          "optimizer (Adam)")}
   by_name, busy = {}, 0.0
   for e in events:
     if e.device_type != DeviceType.CUDA or getattr(
@@ -476,15 +573,15 @@ def profile_step(torch, step_fn):
       out["optimizer (Adam)"] += sum(k.duration / 1e3 for k in e.kernels
                                      if not kind(k.name))
   if busy == 0:
-    log(f"  profile of one step: wall {wall_ms:.1f} ms; torch.profiler "
+    log(f"  profile of one {what}: wall {wall_ms:.1f} ms; torch.profiler "
         "recorded no device time, breakdown not measured")
     return None
   out["other (elementwise, sort, reductions, copies)"] = (
       busy - sum(out.values()))
   out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
-  log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
+  log(f"  profile of one {what}: wall {wall_ms:.1f} ms, device busy "
       f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:6]:
+  for k in list(out)[:7]:
     log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
   for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
     log(f"    kernel {name[:90]}: {ms:.2f} ms")
@@ -559,8 +656,8 @@ def train_slice(torch, scene, card):
   step = trainer.make_train_step(model, pose, tcfg, dev_scene,
                                  scene.i_train, scene.near, scene.far)
   gen = torch.Generator(device="cuda").manual_seed(0)
-  kernels = (fm.fused_mlp, fm.fused_mlp_bwd_dgrad, fm.fused_mlp_bwd_wgrad,
-             fm.fused_mlp_bwd_reduce)
+  kernels = (fm.fused_mlp, fm.tf32_split, fm.fused_mlp_bwd_dgrad,
+             fm.fused_mlp_bwd_wgrad, fm.fused_mlp_bwd_reduce)
 
   for _ in range(TRAIN_WARMUP):
     step(state, gen)
@@ -584,13 +681,16 @@ def train_slice(torch, scene, card):
   log(f"  loss: first 10 mean {first:.5f}, last 10 mean {last:.5f}; "
       f"{' '.join(f'{v:.4f}' for v in losses)}")
   per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-  log(f"  K1 launches per step: {per_step} (expected forward "
-      f"{K1_FWD_PER_STEP}, dgrad / wgrad / reduce {K1_BWD_PER_STEP} each)")
+  log(f"  K1 launches per step: {per_step} (expected forward and "
+      f"tf32_split {K1_FWD_PER_STEP} each, dgrad / wgrad / reduce "
+      f"{K1_BWD_PER_STEP} each)")
   check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
   check(last < first, f"the loss did not fall: first 10 {first}, last 10 "
         f"{last}")
-  check(counts["fused_mlp"] == K1_FWD_PER_STEP * TRAIN_STEPS,
-        f"K1 forward launches {counts['fused_mlp']}")
+  for name in ("fused_mlp", "tf32_split"):
+    check(counts[name] == K1_FWD_PER_STEP * TRAIN_STEPS,
+          f"{name} launches {counts[name]}, expected "
+          f"{K1_FWD_PER_STEP * TRAIN_STEPS}")
   for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
                "fused_mlp_bwd_reduce"):
     check(counts[name] == K1_BWD_PER_STEP * TRAIN_STEPS,
@@ -927,6 +1027,28 @@ def zip_slice(torch, scene, views, view_rays, card):
   del plain_model, flat, want
   torch.cuda.empty_cache()
   profile_chunk(torch, render_fn, chunk_rays)
+
+
+def sass_check(so, nvcc):
+  """The SASS of K1's f32 forward and dgrad kernels in the built library
+  (cuobjdump -sass, beside nvcc): each must hold wgmma (HGMMA) and TMA
+  loads (UTMALDG)."""
+  tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+  out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                       text=True, timeout=120)
+  check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-500:]}")
+  found = {}
+  for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+    name = body.split("\n", 1)[0].strip()
+    for label, key in (("f32 forward", "k1_wgmma_kernelILb0E"),
+                       ("dgrad", "k1_wgmma_kernelILb1E")):
+      if key in name:
+        found[label] = (body.count("HGMMA"), body.count("UTMALDG"))
+  log(f"  SASS of K1's wgmma kernels (HGMMA, UTMALDG): {found}")
+  for label in ("f32 forward", "dgrad"):
+    hgmma, utmaldg = found.get(label, (0, 0))
+    check(hgmma > 0 and utmaldg > 0, f"K1 {label}: the SASS lacks wgmma "
+          f"or TMA loads (HGMMA {hgmma}, UTMALDG {utmaldg})")
 
 
 def bound_ms(bytes_, flops=0.0, flop_rate=None):
@@ -1355,6 +1477,7 @@ def main() -> int:
       if ("registers" in line or "spill" in line or "error" in line
           or "Compiling entry" in line):
         log(f"  {line.strip()}")
+  sass_check(built["fused_mlp"][0], _cuda._nvcc())
   phase_done("1-3 device, build")
 
   # 4. kernel against plain
@@ -1371,6 +1494,7 @@ def main() -> int:
   ]
   results = {c[0]: kernel_case(torch, fm.fused_mlp, fm.fused_mlp_plain, *c)
              for c in cases}
+  split_res = split_phase(torch, fm)
   phase_done("4 K1")
 
   # 4b. kernel K2 against plain, at the zip paths' shapes: one hashed
@@ -1443,6 +1567,7 @@ def main() -> int:
   ]
   bresults = {c[0]: bwd_case(torch, fm, *c) for c in bcases}
   kresults = bwd_kernel_times(torch, fm, fine_rows, 1024, 5)
+  bwd_kernel_times(torch, fm, ROWS, 256, 10)   # a proposal layer
   phase_done("7a K1 backward")
 
   # 5. slice
@@ -1471,7 +1596,7 @@ def main() -> int:
 
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  fm.fused_mlp.launches = 0
+  fm.fused_mlp.launches = fm.tf32_split.launches = 0
   outs, secs = [], []
   for i in views:
     rays = view_rays(i)
@@ -1481,6 +1606,7 @@ def main() -> int:
     torch.cuda.synchronize()
     secs.append(time.perf_counter() - t0)
   launches = fm.fused_mlp.launches
+  split_launches = fm.tf32_split.launches
   peak = torch.cuda.max_memory_allocated()
   n_chunks = len(views) * -(-H * W // cfg.chunk)
   for i, out, s in zip(views, outs, secs):
@@ -1494,9 +1620,11 @@ def main() -> int:
     check(float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-5,
           f"view {i}: acc outside [0, 1]: {float(acc.min())} "
           f"{float(acc.max())}")
-  log(f"  fused_mlp launches on the render path: {launches} "
-      f"(3 per chunk x {n_chunks} chunks expected)")
+  log(f"  fused_mlp launches on the render path: {launches}, tf32_split "
+      f"{split_launches} (3 each per chunk x {n_chunks} chunks expected)")
   check(launches > 0, "the render path did not launch the fused_mlp kernel")
+  check(split_launches == launches, "the render path's tf32_split launches "
+        f"{split_launches} differ from its forward launches {launches}")
   log(f"  render rate (2nd view, steady): {H * W / secs[-1]:.1f} rays/s; "
       f"peak device memory {peak / 2**30:.3f} GiB "
       f"(torch.cuda.max_memory_allocated) | {card}")
@@ -1513,8 +1641,17 @@ def main() -> int:
       f"(tol {RENDER_TOL})")
   check(all(v <= RENDER_TOL for v in errs.values()),
         f"kernel render disagrees with the plain stack: {errs}")
+  plain_fn = make_eval_render_fn(plain_model, white_bkgd=cfg.white_bkgd)
+  p1 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
+  k1 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
+  k2 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
+  p2 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
+  log(f"  one chunk end to end: kernel model {(k1 + k2) / 2:.2f} ms, "
+      f"plain-stack model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
+      f"{p1:.2f}/{p2:.2f}] | {card}")
+  profile_step(torch, lambda: render_fn(chunk_rays), "chunk")
 
-  del model, plain_model, outs, got, want, chunk_rays
+  del model, plain_model, plain_fn, outs, got, want, chunk_rays
   torch.cuda.empty_cache()
   phase_done("5 mip render")
 
@@ -1544,13 +1681,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"] if library else None}
 
-  # K1 forward at fine trunk_1..4: 2 N D^2 L f32 products as 3xTF32, and
-  # x, W, b read and the output written once
-  n, d, nl = ROWS, 1024, 4
-  k1 = dict(results["fine trunk_1..4"])
-  k1["bound_ms"], k1["bound_by"] = bound_ms(
-      (2 * n * d + nl * d * d + nl * d) * 4, 2.0 * n * d * d * nl,
-      F32_MMA_RATE)
+  # K1 forward at fine trunk_1..4 (its bound from kernel_case); its
+  # weight split at the same run's [4, 1024, 1024] weights (split_phase)
+  d = 1024
   # K1's backward kernels alone at one fine-trunk layer (N = fine_rows);
   # the reduce sums the wgrad partials (wgrad_splits of D x D + D)
   n = fine_rows
@@ -1572,11 +1705,14 @@ def main() -> int:
                    "snerf_tpu/ops/pallas/fused_mlp.py:66",
                    train_counts["fused_mlp"],
                    max(results[c[0]]["err"] for c in cases if c[4] == f32),
-                   k1, library=False)]
+                   results["fine trunk_1..4"], library=False),
+             entry("tf32_split", "fused_mlp.cu",
+                   "snerf_tpu/ops/pallas/fused_mlp.py:66",
+                   train_counts["tf32_split"], split_res["err"], split_res,
+                   library=False)]
   kernels += [entry(name, "fused_mlp.cu",
                     "snerf_tpu/ops/pallas/fused_mlp.py:104",
-                    train_counts[name], kresults[name]["err"], kb[name],
-                    library=False)
+                    train_counts[name], kresults[name]["err"], kb[name])
               for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
                            "fused_mlp_bwd_reduce")]
   kernels.append(entry(

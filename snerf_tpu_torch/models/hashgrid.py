@@ -162,7 +162,7 @@ class HashEncoding(nn.Module):
   def __init__(self, num_levels: int = 10, level_dim: int = 4,
                base_resolution: int = 16, desired_resolution: int = 8192,
                log2_hashmap_size: int = 21, init_std: float = 1e-4,
-               gather_fn: GatherFn = gather_rows, device=None):
+               gather_fn: GatherFn = gather_rows, device="cuda"):
     super().__init__()
     self.spec = make_grid_spec(num_levels, level_dim, base_resolution,
                                desired_resolution, log2_hashmap_size)

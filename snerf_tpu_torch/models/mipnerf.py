@@ -109,7 +109,7 @@ class MipNerfModel(nn.Module):
   """
 
   def __init__(self, config: MipNerfConfig, stack_fn: StackFn = fused_mlp,
-               device=None):
+               device="cuda"):
     super().__init__()
     c = self.config = config
     enc_features = 2 * 3 * (c.max_deg_point - c.min_deg_point)

@@ -25,7 +25,7 @@ StackFn = Callable[..., torch.Tensor]
 class DenseBlock(nn.Module):
   """Linear + ReLU, named as the reference's DenseBlock (`layers.0`)."""
 
-  def __init__(self, in_features: int, out_features: int, device=None):
+  def __init__(self, in_features: int, out_features: int, device="cuda"):
     super().__init__()
     self.layers = nn.Sequential(
         nn.Linear(in_features, out_features, device=device), nn.ReLU())
@@ -85,7 +85,7 @@ class NerfMLP(nn.Module):
                condition_width: int = 128, num_rgb_channels: int = 3,
                num_density_channels: int = 1,
                num_semantic_channels: int = 0,
-               stack_fn: StackFn = fused_mlp, device=None):
+               stack_fn: StackFn = fused_mlp, device="cuda"):
     super().__init__()
     self.stack_fn = stack_fn
     # The trunk input is concatenated AFTER layer i for i > 0 and
@@ -142,7 +142,7 @@ class ProposalMLP(nn.Module):
 
   def __init__(self, in_features: int, net_depth: int = 4,
                net_width: int = 256, num_density_channels: int = 1,
-               stack_fn: StackFn = fused_mlp, device=None):
+               stack_fn: StackFn = fused_mlp, device="cuda"):
     super().__init__()
     self.stack_fn = stack_fn
     self.layers = nn.ModuleList(

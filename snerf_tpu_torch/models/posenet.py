@@ -20,7 +20,7 @@ from snerf_tpu_torch.ops import lie
 class LearnPose(nn.Module):
   """Per-camera learnable SE(3) delta composed onto initial c2w poses."""
 
-  def __init__(self, num_cams: int, device=None):
+  def __init__(self, num_cams: int, device="cuda"):
     super().__init__()
     self.num_cams = num_cams
     self.r = nn.Parameter(torch.zeros(num_cams, 3, device=device))

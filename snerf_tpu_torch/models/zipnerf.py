@@ -150,7 +150,7 @@ class ZipMLP(nn.Module):
 
   def __init__(self, config: ZipNerfConfig, grid_resolution: int,
                grid_level_dim: int, disable_rgb: bool = False,
-               gather_fn: GatherFn = gather_rows, device=None):
+               gather_fn: GatherFn = gather_rows, device="cuda"):
     super().__init__()
     c = self.config = config
     self.disable_rgb = disable_rgb
@@ -243,7 +243,7 @@ class ZipNerfModel(nn.Module):
   """
 
   def __init__(self, config: ZipNerfConfig, gather_fn: GatherFn = gather_rows,
-               device=None):
+               device="cuda"):
     super().__init__()
     c = self.config = config
     for i in range(c.num_levels - 1):

@@ -3,12 +3,15 @@ snerf_tpu/ops/pallas/fused_mlp.py and its custom VJP).
 
 `fused_mlp` launches the hand-written Hopper kernels in
 `snerf_tpu_torch/csrc/fused_mlp.cu` for CUDA tensors and runs the plain
-PyTorch versions (`fused_mlp_plain`, `fused_mlp_bwd_plain`) for CPU
-tensors. Under autograd it goes through `FusedMLPFunction`: the forward
-keeps every layer's output and the backward runs, per layer, the dgrad
-kernel (dz W^T with the ReLU mask of the layer below) and the wgrad
-kernel (act^T dz and the bias sums, N split across blocks) with its
-fixed-order reduce. The kernels are built and loaded by `ops/_cuda.py`.
+PyTorch versions (`fused_mlp_plain`, `fused_mlp_bwd_plain`,
+`tf32_split_plain`) for CPU tensors. float32 runs 3xTF32 on wgmma: the
+weights are split once a call into TF32 big and small parts
+(`tf32_split`) and the forward reads them transposed. Under autograd it
+goes through `FusedMLPFunction`: the forward keeps every layer's output
+and the split, and the backward runs, per layer, the dgrad kernel (dz
+W^T with the ReLU mask of the layer below, on the kept split) and the
+wgrad kernel (act^T dz and the bias sums, N split across blocks) with
+its fixed-order reduce. The kernels are built and loaded by `ops/_cuda.py`.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from snerf_tpu_torch.ops import _cuda
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_ROWS = 2 ** 31 - 64  # the kernels index rows with int
 _BK = 32                  # wgrad's k-depth: a split is a multiple of it
 _MIN_SPLIT_ROWS = 256
@@ -33,11 +36,17 @@ _WAVES = 8                # wgrad blocks to aim for, in waves of 2 per SM
 
 
 def _bind(lib):
-  lib.snerf_fused_mlp_fwd.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-  lib.snerf_fused_mlp_fwd.restype = ctypes.c_int
+  lib.snerf_fused_mlp_fwd_f32.argtypes = (
+      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+  lib.snerf_fused_mlp_fwd_f32.restype = ctypes.c_int
+  lib.snerf_fused_mlp_fwd_bf16.argtypes = (
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+  lib.snerf_fused_mlp_fwd_bf16.restype = ctypes.c_int
+  lib.snerf_tf32_split.argtypes = (
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+  lib.snerf_tf32_split.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_dgrad.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_bwd_dgrad.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_wgrad.argtypes = (
       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -76,7 +85,7 @@ def _check_cuda(what, x, *others):
       raise ValueError(f"{what}: tensors on {t.device} and {x.device}")
     if t.dtype != x.dtype:
       raise ValueError(f"{what}: dtypes {t.dtype} and {x.dtype}")
-  if x.dtype not in _DTYPE_CODE:
+  if x.dtype not in _DTYPES:
     raise ValueError(f"{what}: dtype {x.dtype} not supported")
   if not all(t.is_contiguous() for t in (x, *others)):
     raise ValueError(f"{what}: inputs must be contiguous")
@@ -142,10 +151,77 @@ def fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
   return dh.to(x.dtype), torch.stack(dws[::-1]), torch.stack(dbs[::-1])
 
 
-def _launch_fwd(x, w_stack, b_stack, last_relu, keep: bool):
+def _tf32_rna(v):
+  """`cvt.rna.tf32.f32` on float32 bit patterns, as an H100 gives it: the
+  magnitude rounded to TF32's 10 mantissa bits, ties away from zero, then
+  its low 13 bits cleared; the sign is kept, so signed zeros pass.
+  Subnormals round the same way (a carry may make them normal, as one
+  into the exponent makes the largest values inf); inf passes; a NaN is
+  truncated (low 13 bits cleared, so a NaN whose payload lies only there
+  becomes inf)."""
+  u = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+  sign, mag = u & 0x80000000, u & 0x7FFFFFFF
+  bits = torch.where(mag <= 0x7F800000,
+                     sign | ((mag + 0x1000) & 0x7FFFE000), u & 0xFFFFE000)
+  bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+  return bits.to(torch.int32).view(torch.float32)
+
+
+_CANONICAL_NAN = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(
+    torch.float32)
+
+
+def tf32_split_plain(w):
+  """(big, small) of float32 w: big = tf32(w), small = tf32(w - big), each
+  by `_tf32_rna`, so big + small is w to ~2^-22 relative. A NaN of the
+  subtraction (w inf or NaN) is the card's canonical NaN 0x7fffffff."""
+  if w.dtype != torch.float32:
+    raise ValueError(f"tf32_split: float32 only, got {w.dtype}")
+  big = _tf32_rna(w)
+  diff = w - big
+  diff = torch.where(torch.isnan(diff), _CANONICAL_NAN.to(w.device), diff)
+  return big, _tf32_rna(diff)
+
+
+def tf32_split(w_stack, keep: bool = True):
+  """The 3xTF32 split of w_stack [L, D, D] float32 for the kernels:
+  (big, small, big_t, small_t). (big_t, small_t) are transposed per
+  layer, [L, out, in] (the forward's B operand); (big, small) keep
+  w_stack's layout (dgrad's B operand) when `keep`, else are None. CUDA
+  tensors launch `tf32_split_kernel` (one launch, counted in
+  `tf32_split.launches`); CPU tensors run `tf32_split_plain`."""
+  if w_stack.dim() != 3 or w_stack.shape[1] != w_stack.shape[2]:
+    raise ValueError(f"tf32_split: w_stack must be [L, D, D], got "
+                     f"{tuple(w_stack.shape)}")
+  if w_stack.device.type == "cpu":
+    big, small = tf32_split_plain(w_stack)
+    return (*((big, small) if keep else (None, None)),
+            big.transpose(1, 2).contiguous(),
+            small.transpose(1, 2).contiguous())
+  _check_cuda("tf32_split", w_stack)
+  if w_stack.dtype != torch.float32:
+    raise ValueError(f"tf32_split: float32 only, got {w_stack.dtype}")
+  outs = [torch.empty_like(w_stack) if want else None
+          for want in (keep, keep, True, True)]
+  n_layers, d = w_stack.shape[:2]
+  lib = _lib()
+  err = lib.snerf_tf32_split(
+      w_stack.data_ptr(), *(None if t is None else t.data_ptr() for t in outs),
+      n_layers, d, w_stack.device.index, _stream(w_stack))
+  _cuda.check_launch(lib, err, f"tf32_split at L={n_layers} D={d}")
+  tf32_split.launches += 1
+  return tuple(outs)
+
+
+def _launch_fwd(x, w_stack, b_stack, last_relu, keep: bool, split_t=None):
   """One forward launch. keep=True also returns the layers before the
-  last as a [L-1, N, D] tensor (None for L = 1)."""
+  last as a [L-1, N, D] tensor (None for L = 1), float32 only. float32
+  runs on the transposed split (big_t, small_t) of `tf32_split`, made
+  here when `split_t` is None."""
   n, d, n_layers = _check_shapes(x, w_stack, b_stack)
+  f32 = x.dtype == torch.float32
+  if keep and not f32:
+    raise NotImplementedError("fused_mlp keeping its layers: float32 only")
   out = torch.empty_like(x)
   saved = tmp = None
   if n_layers > 1:
@@ -156,28 +232,37 @@ def _launch_fwd(x, w_stack, b_stack, last_relu, keep: bool):
   if n == 0:
     return out, saved
   lib = _lib()
-  err = lib.snerf_fused_mlp_fwd(
-      x.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
-      None if tmp is None else tmp.data_ptr(),
-      None if saved is None else saved.data_ptr(), n, d, n_layers,
-      int(bool(last_relu)), _DTYPE_CODE[x.dtype], x.device.index,
-      _stream(x))
+  ptr = lambda t: None if t is None else t.data_ptr()
+  if f32:
+    if split_t is None:
+      split_t = tf32_split(w_stack, keep=False)[2:]
+    err = lib.snerf_fused_mlp_fwd_f32(
+        x.data_ptr(), split_t[0].data_ptr(), split_t[1].data_ptr(),
+        b_stack.data_ptr(), out.data_ptr(), ptr(tmp), ptr(saved), n, d,
+        n_layers, int(bool(last_relu)), x.device.index, _stream(x))
+  else:
+    err = lib.snerf_fused_mlp_fwd_bf16(
+        x.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
+        ptr(tmp), n, d, n_layers, int(bool(last_relu)), x.device.index,
+        _stream(x))
   _cuda.check_launch(lib, err,
                      f"fused_mlp at N={n} D={d} L={n_layers} {x.dtype}")
   fused_mlp.launches += 1
   return out, saved
 
 
-def fused_mlp_bwd_dgrad(dz, w, mask, out):
+def fused_mlp_bwd_dgrad(dz, w_big, w_small, mask, out):
   """out = (dz @ w.T) * (mask > 0) on the card (no mask when mask is
-  None): dz, mask, out [N, D] float32, w [D, D] ([in, out])."""
-  _check_cuda("fused_mlp_bwd_dgrad", dz, w, out,
+  None): dz, mask, out [N, D] float32; w [D, D] ([in, out]) given as its
+  split (w_big, w_small) from `tf32_split` (not transposed)."""
+  _check_cuda("fused_mlp_bwd_dgrad", dz, w_big, w_small, out,
               *(() if mask is None else (mask,)))
   n, d = dz.shape
   lib = _lib()
   err = lib.snerf_fused_mlp_bwd_dgrad(
-      dz.data_ptr(), w.data_ptr(), None if mask is None else mask.data_ptr(),
-      out.data_ptr(), n, d, dz.device.index, _stream(dz))
+      dz.data_ptr(), w_big.data_ptr(), w_small.data_ptr(),
+      None if mask is None else mask.data_ptr(), out.data_ptr(), n, d,
+      dz.device.index, _stream(dz))
   _cuda.check_launch(lib, err, f"fused_mlp_bwd_dgrad at N={n} D={d}")
   fused_mlp_bwd_dgrad.launches += 1
   return out
@@ -222,11 +307,12 @@ def fused_mlp_bwd_reduce(part_w, part_b, dw, db):
   fused_mlp_bwd_reduce.launches += 1
 
 
-def fused_mlp_bwd(x, w_stack, b_stack, saved, g, last_relu: bool = True,
-                  need_dx: bool = True):
+def fused_mlp_bwd(x, w_stack, b_stack, saved, g, split,
+                  last_relu: bool = True, need_dx: bool = True):
   """The backward on the card: the kernels' counterpart of
   `fused_mlp_bwd_plain` (float32). saved: the L layer outputs of the
-  forward. Returns (dx or None, dw_stack, db_stack)."""
+  forward; split: w_stack's (big, small) from `tf32_split`. Returns
+  (dx or None, dw_stack, db_stack)."""
   n, d, n_layers = _check_shapes(x, w_stack, b_stack)
   if x.dtype != torch.float32:
     raise NotImplementedError(f"fused_mlp backward: {x.dtype} is not "
@@ -239,6 +325,7 @@ def fused_mlp_bwd(x, w_stack, b_stack, saved, g, last_relu: bool = True,
     dw.zero_()
     db.zero_()
     return (dx, dw, db)
+  w_big, w_small = split
   sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
   rows, splits = wgrad_splits(n, d, sm_count)
   part_w = x.new_empty(splits, d, d)
@@ -251,15 +338,17 @@ def fused_mlp_bwd(x, w_stack, b_stack, saved, g, last_relu: bool = True,
     fused_mlp_bwd_reduce(part_w, part_b, dw[i], db[i, 0])
     if i > 0:
       nxt = bufs[1] if dz is bufs[0] else bufs[0]
-      dz = fused_mlp_bwd_dgrad(dz, w_stack[i], act, nxt)
+      dz = fused_mlp_bwd_dgrad(dz, w_big[i], w_small[i], act, nxt)
     elif need_dx:
-      fused_mlp_bwd_dgrad(dz, w_stack[0], None, dx)
+      fused_mlp_bwd_dgrad(dz, w_big[0], w_small[0], None, dx)
   return dx, dw, db
 
 
 class FusedMLPFunction(torch.autograd.Function):
-  """`fused_mlp` under autograd. CUDA: the kernel forward keeps every
-  layer's output and the backward runs the dgrad and wgrad kernels. CPU:
+  """`fused_mlp` under autograd. CUDA: the weights are split once
+  (`tf32_split`, both layouts), the kernel forward keeps every layer's
+  output and the backward runs the dgrad kernel on the kept split and the
+  wgrad kernel. CPU:
   `fused_mlp_plain`'s layers forward and `fused_mlp_bwd_plain` backward.
   bf16 raises NotImplementedError (the trainer's mip path is float32)."""
 
@@ -268,23 +357,26 @@ class FusedMLPFunction(torch.autograd.Function):
     if torch.bfloat16 in (x.dtype, w_stack.dtype, b_stack.dtype):
       raise NotImplementedError("fused_mlp under autograd: bfloat16 is not "
                                 "supported yet, only float32")
+    split = (None, None)
     if x.device.type == "cuda":
-      out, kept = _launch_fwd(x, w_stack, b_stack, last_relu, keep=True)
+      *split, big_t, small_t = tf32_split(w_stack)
+      out, kept = _launch_fwd(x, w_stack, b_stack, last_relu, keep=True,
+                              split_t=(big_t, small_t))
       layers = [] if kept is None else list(kept.unbind(0))
     else:
       *layers, out = _plain_layers(x, w_stack, b_stack, last_relu)
     ctx.last_relu = bool(last_relu)
-    ctx.save_for_backward(x, w_stack, b_stack, out, *layers)
+    ctx.save_for_backward(x, w_stack, b_stack, *split, out, *layers)
     return out
 
   @staticmethod
   def backward(ctx, g):
-    x, w_stack, b_stack, out, *layers = ctx.saved_tensors
+    x, w_stack, b_stack, w_big, w_small, out, *layers = ctx.saved_tensors
     saved = [*layers, out]
     g = g.contiguous()
     if x.device.type == "cuda":
       dx, dw, db = fused_mlp_bwd(x, w_stack, b_stack, saved, g,
-                                 ctx.last_relu,
+                                 (w_big, w_small), ctx.last_relu,
                                  need_dx=ctx.needs_input_grad[0])
     else:
       dx, dw, db = fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
@@ -301,7 +393,7 @@ def fused_mlp(x, w_stack, b_stack, last_relu: bool = True):
   contiguous, D a multiple of 128, 16-byte aligned) or raise. With grad
   enabled and any input requiring grad the call is differentiable
   (`FusedMLPFunction`). `fused_mlp.launches` counts forward launches;
-  the backward's wrappers count their own.
+  `tf32_split` and the backward's wrappers count their own.
   """
   _check_shapes(x, w_stack, b_stack)
   if x.device.type not in ("cpu", "cuda"):
@@ -316,6 +408,6 @@ def fused_mlp(x, w_stack, b_stack, last_relu: bool = True):
   return _launch_fwd(x, w_stack, b_stack, last_relu, keep=False)[0]
 
 
-for _fn in (fused_mlp, fused_mlp_bwd_dgrad, fused_mlp_bwd_wgrad,
+for _fn in (fused_mlp, tf32_split, fused_mlp_bwd_dgrad, fused_mlp_bwd_wgrad,
             fused_mlp_bwd_reduce):
   _fn.launches = 0

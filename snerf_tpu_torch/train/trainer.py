@@ -119,7 +119,7 @@ def _check_supported(cfg: TrainConfig):
 
 def create_train_state(seed: int, model_cfg: MipNerfConfig,
                        cfg: TrainConfig, num_images: int, init_poses=None,
-                       device=None):
+                       device="cuda"):
   """A seeded model (glorot init), the pose model when pose_refine (its
   tables start at zero; init_poses is not read, as in the JAX version)
   and their optimizers. Returns (model, pose_model, state)."""

@@ -170,7 +170,7 @@ def make_zip_optimizer(model: ZipNerfModel,
 
 def create_zip_train_state(seed: int, model_cfg: ZipNerfConfig,
                            cfg: ZipTrainConfig, num_images: int = 0,
-                           device=None) -> ZipTrainState:
+                           device="cuda") -> ZipTrainState:
   """A seeded model (`zip_init_`), its Adam with the encoder tables in
   their own group, the EMA copy when ema_decay > 0, and the pose model
   (zero tables) with its SGD when pose_refine and num_images > 0."""

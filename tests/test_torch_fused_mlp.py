@@ -18,7 +18,8 @@ import torch
 from snerf_tpu.ops.pallas.fused_mlp import fused_mlp as jax_fused_mlp
 from snerf_tpu_torch.ops.fused_mlp import (FusedMLPFunction, fused_mlp,
                                            fused_mlp_bwd_plain,
-                                           fused_mlp_plain, wgrad_splits)
+                                           fused_mlp_plain, tf32_split,
+                                           tf32_split_plain, wgrad_splits)
 
 N, D = 300, 256  # N is ragged against the Pallas tile of 128
 
@@ -138,3 +139,100 @@ def test_wgrad_splits(n, d, want):
   rows, splits = wgrad_splits(n, d, 132)
   assert (rows, splits) == want
   assert rows % 32 == 0 and splits * rows >= n > (splits - 1) * rows
+
+
+def _bits(*patterns):
+  """float32 tensor of the given 32-bit patterns."""
+  return torch.tensor([p - 2 ** 32 if p >= 2 ** 31 else p for p in patterns],
+                      dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+
+def _hex(t):
+  return [p & 0xFFFFFFFF for p in t.view(torch.int32).tolist()]
+
+
+def _spread(seed=8):
+  """float32 values over 2^-30 .. 2^30 in magnitude, both signs."""
+  rng = np.random.RandomState(seed)
+  v = rng.normal(size=4096) * np.exp2(rng.uniform(-30, 30, 4096))
+  return torch.from_numpy(v.astype(np.float32))
+
+
+def test_tf32_split_big_has_low_13_bits_clear():
+  big, small = tf32_split_plain(_spread())
+  assert all(p & 0x1FFF == 0 for p in _hex(big))
+  assert all(p & 0x1FFF == 0 for p in _hex(small))
+
+
+def test_tf32_split_sum_within_2_to_minus_22():
+  w = _spread(9)
+  big, small = tf32_split_plain(w)
+  rel = ((big.double() + small.double() - w.double()).abs()
+         / w.double().abs()).max()
+  assert float(rel) <= 2.0 ** -22, float(rel)
+
+
+@pytest.mark.parametrize("w,want", [
+    (0x3F801000, 0x3F802000),   # 1 + 2^-11: a tie, away from zero
+    (0xBF801000, 0xBF802000),   # the same below zero
+    (0x3F803000, 0x3F804000),   # 1 + 3 * 2^-11: a tie, away (not to even)
+    (0x3F800FFF, 0x3F800000),   # below the tie: down
+    (0x3F801001, 0x3F802000),   # above the tie: up
+    (0x00001000, 0x00002000),   # a subnormal tie
+    (0x7F7FF000, 0x7F800000),   # the largest tie carries into inf
+])
+def test_tf32_split_rounds_ties_away_from_zero(w, want):
+  big, _ = tf32_split_plain(_bits(w))
+  assert _hex(big) == [want]
+
+
+def test_tf32_split_signed_zeros_and_inf_pass():
+  w = _bits(0x00000000, 0x80000000, 0x7F800000, 0xFF800000)
+  big, small = tf32_split_plain(w)
+  assert _hex(big) == _hex(w)
+  assert _hex(small)[:2] == [0x00000000, 0x00000000]
+
+
+def test_tf32_split_plain_repeats_the_cards_specials():
+  """Subnormals and NaN as `cvt.rna.tf32.f32` gave them on an H100 80GB
+  HBM3 (chip_smoke.py's bit-equal phase holds them there): a NaN is
+  truncated, not rounded, and a NaN of the subtraction is 0x7fffffff."""
+  w = _bits(0x7FC00000, 0x7F800001, 0xFFC00000, 0x7FFFFFFF, 0x00003000,
+            0x807FF000, 0x00000001, 0x7F800000)
+  big, small = tf32_split_plain(w)
+  assert _hex(big) == [0x7FC00000, 0x7F800000, 0xFFC00000, 0x7FFFE000,
+                       0x00004000, 0x80800000, 0x00000000, 0x7F800000]
+  assert _hex(small) == [0x7FFFE000] * 4 + [0x80002000, 0x00002000,
+                                             0x00000000, 0x7FFFE000]
+
+
+def test_tf32_split_cpu_layouts_and_no_launch():
+  w = torch.from_numpy(_inputs(3, seed=10)[1])
+  big, small, big_t, small_t = tf32_split(w)
+  assert tf32_split.launches == 0
+  want = tf32_split_plain(w)
+  assert torch.equal(big, want[0]) and torch.equal(small, want[1])
+  assert torch.equal(big_t, want[0].transpose(1, 2))
+  assert torch.equal(small_t, want[1].transpose(1, 2))
+  unkept = tf32_split(w, keep=False)
+  assert unkept[:2] == (None, None)
+  assert torch.equal(unkept[2], big_t) and torch.equal(unkept[3], small_t)
+
+
+@pytest.mark.parametrize("n_layers", [2, 4])
+@pytest.mark.parametrize("last_relu", [True, False])
+def test_3xtf32_emulation_matches_pallas_interpret(n_layers, last_relu):
+  """The kernels' arithmetic with IEEE f32 sums: every layer's activation
+  and weight split by tf32_split_plain, a_big w_big + a_big w_small +
+  a_small w_big in f32, against the Pallas kernel within the f32
+  tolerance: the dropped small x small term does not show."""
+  x, w, b = _inputs(n_layers, seed=11)
+  want = np.asarray(jax_fused_mlp(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(b), 128, last_relu, True))
+  h = torch.from_numpy(x)
+  wb, ws = tf32_split_plain(torch.from_numpy(w))
+  for i in range(n_layers):
+    hb, hs = tf32_split_plain(h)
+    z = hb @ ws[i] + hs @ wb[i] + hb @ wb[i] + torch.from_numpy(b[i])
+    h = torch.relu(z) if i < n_layers - 1 or last_relu else z
+  np.testing.assert_allclose(h.numpy(), want, atol=1e-4, rtol=1e-4)

@@ -61,7 +61,7 @@ def _init_jax(kw, seed):
 def pair(request):
   kw = dict(SMALL, **CONFIGS[request.param])
   jmodel, variables = _init_jax(kw, 0)
-  tmodel = MipNerfModel(MipNerfConfig(**kw))
+  tmodel = MipNerfModel(MipNerfConfig(**kw), device="cpu")
   tmodel.load_state_dict(state_dict_from_flax(_np_params(variables)))
   return jmodel, variables, tmodel
 
@@ -152,7 +152,7 @@ def test_render_image_parity_on_synthetic_view():
   a ragged last chunk on the port's side."""
   kw = dict(SMALL, **CONFIGS["warp"])
   jmodel, variables = _init_jax(kw, 3)
-  tmodel = MipNerfModel(MipNerfConfig(**kw))
+  tmodel = MipNerfModel(MipNerfConfig(**kw), device="cpu")
   tmodel.load_state_dict(state_dict_from_flax(_np_params(variables)))
 
   scene = synthetic.make_synthetic_scene(num_images=2, H=8, W=8,
@@ -204,9 +204,9 @@ def test_model_config_matches_jax_adapter():
 
 def test_glorot_init_is_seeded():
   cfg = MipNerfConfig(**SMALL)
-  a = glorot_init_(MipNerfModel(cfg), seed=5).state_dict()
-  b = glorot_init_(MipNerfModel(cfg), seed=5).state_dict()
-  c = glorot_init_(MipNerfModel(cfg), seed=6).state_dict()
+  a = glorot_init_(MipNerfModel(cfg, device="cpu"), seed=5).state_dict()
+  b = glorot_init_(MipNerfModel(cfg, device="cpu"), seed=5).state_dict()
+  c = glorot_init_(MipNerfModel(cfg, device="cpu"), seed=6).state_dict()
   w = "mlp.layers.1.layers.0.weight"
   assert torch.equal(a[w], b[w]) and not torch.equal(a[w], c[w])
   assert float(a[w].abs().max()) <= np.sqrt(6.0 / 256) + 1e-7

@@ -27,7 +27,7 @@ from snerf_tpu_torch.utils.weights import glorot_init_
 cfg = load_config(["--config", "configs/nuScenes_depth_6cams",
                    "--hidden_layer", "128", "--proposal_hidden_layer", "128",
                    "--N_samples", "8", "--N_fine", "8"])
-model = glorot_init_(MipNerfModel(model_config(cfg)), seed=0)
+model = glorot_init_(MipNerfModel(model_config(cfg), device="cpu"), seed=0)
 scene = make_synthetic_scene(num_images=2, H=4, W=4, n_render_samples=8)
 rays = rays_for_image(torch.from_numpy(scene.poses[0]),
                       torch.from_numpy(scene.intrinsics[0]), 4, 4,
@@ -50,7 +50,7 @@ zcfg = load_config(["--config", "configs/waymo_zipnerf",
                     "--zip_prop_grid_resolutions", "(64, 128)",
                     "--zip_nerf_grid_resolution", "256",
                     "--zip_bottleneck_width", "32"])
-zmodel = zip_init_(ZipNerfModel(zip_model_config(zcfg)), seed=0,
+zmodel = zip_init_(ZipNerfModel(zip_model_config(zcfg), device="cpu"), seed=0,
                    table_scale=1.0)
 zout = render_image(make_zip_eval_render_fn(zmodel), rays, chunk=6)
 assert zout["rgb"].shape == (4, 4, 3), zout["rgb"].shape
@@ -69,7 +69,7 @@ tflags = load_config(["--config", "configs/nuScenes_depth_6cams",
 tcfg = train_config(tflags)
 tscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
 tmodel, tpose, tstate = create_train_state(0, model_config(tflags), tcfg,
-                                           tscene.num_images)
+                                           tscene.num_images, device="cpu")
 tstep = make_train_step(tmodel, tpose, tcfg, scene_to_device(tscene, "cpu"),
                         tscene.i_train, tscene.near, tscene.far)
 gen = torch.Generator().manual_seed(0)
@@ -94,7 +94,8 @@ zscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
 zscene.semantics = (zscene.depths > zscene.depths.mean()).astype("int32")
 zscene.skymask = zscene.depths > 1e9
 zstate = create_zip_train_state(0, zip_model_config(zflags),
-                                zip_train_config(zflags), zscene.num_images)
+                                zip_train_config(zflags), zscene.num_images,
+                                device="cpu")
 zstep = make_zip_train_step(zstate.model, zip_train_config(zflags),
                             scene_to_device(zscene, "cpu"), zscene.i_train,
                             zscene.near, zscene.far)

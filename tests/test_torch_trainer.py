@@ -128,7 +128,8 @@ def _port_state(jstate, scene, tdev):
   tcfg = trainer.TrainConfig(**TRAIN)
   mcfg = MipNerfConfig(**MODEL)
   model, pose, state = trainer.create_train_state(1, mcfg, tcfg,
-                                                  scene.num_images)
+                                                  scene.num_images,
+                                                  device="cpu")
   model_sd, pose_sd = train_state_from_flax(_np(jstate.params),
                                             _np(jstate.pose_params))
   model.load_state_dict(model_sd)
@@ -308,7 +309,8 @@ def test_depth_conf_raises():
     tconfig.train_config(cfg)
   with pytest.raises(NotImplementedError):
     trainer.create_train_state(0, MipNerfConfig(**MODEL),
-                               trainer.TrainConfig(depth_conf=True), 6)
+                               trainer.TrainConfig(depth_conf=True), 6,
+                               device="cpu")
 
 
 def test_train_config_matches_jax_adapter():

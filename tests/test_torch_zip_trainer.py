@@ -173,7 +173,8 @@ def _setup(variant):
 def _port_state(jstate, scene, tdev, train):
   tcfg = trainer.ZipTrainConfig(**train)
   mcfg = ZipNerfConfig(**MODEL)
-  state = trainer.create_zip_train_state(1, mcfg, tcfg, scene.num_images)
+  state = trainer.create_zip_train_state(1, mcfg, tcfg, scene.num_images,
+                                         device="cpu")
   zip_train_state_from_flax(
       state, _np(jstate.params),
       None if jstate.pose_params is None else _np(jstate.pose_params),
@@ -455,4 +456,4 @@ def test_unported_losses_raise():
   with pytest.raises(NotImplementedError):
     trainer.create_zip_train_state(
         0, ZipNerfConfig(**MODEL),
-        trainer.ZipTrainConfig(orientation_loss_mult=0.1))
+        trainer.ZipTrainConfig(orientation_loss_mult=0.1), device="cpu")

@@ -47,7 +47,7 @@ def test_randomized_forward_matches_jax(noise_bg):
       jax.random.PRNGKey(3))["params"])
   for mlp in params.values():
     mlp["grid"]["table"] = mlp["grid"]["table"] * TABLE_SCALE
-  tmodel = ZipNerfModel(tmcfg)
+  tmodel = ZipNerfModel(tmcfg, device="cpu")
   tmodel.load_state_dict(zip_state_dict_from_flax(params))
   rng = np.random.RandomState(0)
   n = 24

@@ -61,7 +61,7 @@ def _pair():
   params = _np_params(variables)
   for mlp in params.values():
     mlp["grid"]["table"] = mlp["grid"]["table"] * TABLE_SCALE
-  tmodel = ZipNerfModel(ZipNerfConfig(**SMALL))
+  tmodel = ZipNerfModel(ZipNerfConfig(**SMALL), device="cpu")
   tmodel.load_state_dict(zip_state_dict_from_flax(params))
   return JaxModel(config=jcfg), params, tmodel
 
@@ -135,7 +135,8 @@ def test_hash_encode_matches_jax():
 
 def test_hash_encoding_grid_sizes_and_layout():
   enc = hashgrid.HashEncoding(num_levels=4, level_dim=2, base_resolution=16,
-                              desired_resolution=128, log2_hashmap_size=12)
+                              desired_resolution=128, log2_hashmap_size=12,
+                              device="cpu")
   spec = jhashgrid.make_grid_spec(4, 2, 16, 128, 12)
   assert tuple(enc.embeddings.shape) == (spec.total_rows, 2)
   assert float(enc.embeddings.detach().abs().max()) <= 1e-4
@@ -169,9 +170,10 @@ def test_bridge_rejects_unported_parameters():
 def test_zip_init_is_seeded_lecun(density_zero_init):
   cfg = ZipNerfConfig(**dict(SMALL, density_zero_init=density_zero_init,
                              density_hidden_width=256))
-  a = zip_init_(ZipNerfModel(cfg), seed=5).state_dict()
-  b = zip_init_(ZipNerfModel(cfg), seed=5).state_dict()
-  c = zip_init_(ZipNerfModel(cfg), seed=6, table_scale=0.5).state_dict()
+  a = zip_init_(ZipNerfModel(cfg, device="cpu"), seed=5).state_dict()
+  b = zip_init_(ZipNerfModel(cfg, device="cpu"), seed=5).state_dict()
+  c = zip_init_(ZipNerfModel(cfg, device="cpu"), seed=6,
+                table_scale=0.5).state_dict()
   w = "nerf_mlp.density_layer.2.weight"     # [bottleneck, 256]
   assert torch.equal(a[w], b[w]) and not torch.equal(a[w], c[w])
   # truncated at 2 std, variance 1 / fan_in after truncation
@@ -240,7 +242,7 @@ def test_model_eval_forward_parity():
   np.testing.assert_allclose(got[-1]["semantic"].numpy(),
                              np.asarray(want[-1]["semantic"]), atol=1e-4)
   # the tables matter: the same rays with zeroed tables render otherwise
-  zeroed = ZipNerfModel(tmodel.config)
+  zeroed = ZipNerfModel(tmodel.config, device="cpu")
   zeroed.load_state_dict(tmodel.state_dict())
   with torch.no_grad():
     for mlp in zeroed.mlps():
@@ -270,7 +272,8 @@ def test_render_image_parity_on_synthetic_view():
   assert got["semantic"].shape == (8, 8, 5)
   _assert_render_close(got, want)
   # a model whose gathers run the plain version renders the same bits
-  plain = ZipNerfModel(tmodel.config, gather_fn=gather_rows_plain)
+  plain = ZipNerfModel(tmodel.config, gather_fn=gather_rows_plain,
+                       device="cpu")
   plain.load_state_dict(tmodel.state_dict())
   again = renderer.render_image(renderer.make_zip_eval_render_fn(plain),
                                 trays, chunk=24)
