@@ -7,9 +7,9 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. float32 numerics: TF32 off for matmuls and cuDNN;
   3. build: every kernel in csrc/, one nvcc process each, all at once;
-     the ptxas lines (registers, spills); the SASS of K1's f32 forward
-     and dgrad kernels (cuobjdump -sass) must hold wgmma (HGMMA) and TMA
-     loads (UTMALDG);
+     the ptxas lines (registers, spills: K1's three wgmma kernels must
+     spill nothing); the SASS of K1's f32 forward, dgrad and wgrad kernels
+     (cuobjdump -sass) must hold wgmma (HGMMA) and TMA loads (UTMALDG);
   4. kernel K1 against plain: tf32_split bit-equal to tf32_split_plain at
      the fine and proposal trunks' weight shapes and on special values
      (signed zeros, inf, NaN, subnormals, ties); the fused-MLP kernel
@@ -24,11 +24,17 @@ Phases, each fatal on failure:
      0 and T-1; exact equality, CUDA-event times, GB/s and the bound;
   4c. K2's scatter-add backward against scatter_add_rows_plain
      (index_add_) and an f64 index_add_ control, at the zip train step's
-     shapes (a dense and a hashed level of prop_mlp_0, C = 1, and of the
-     nerf MLP, C = 4, each into its level's own gradient), a ragged Q, C =
-     3 into a sub-range of the rows and the TPU kernel's 4,992-row table;
-     error / max|control| within SCATTER_TOL, no update outside the drawn
-     rows, CUDA-event times, GB/s and per-level ms;
+     shapes (dense levels 0 and 3 and hashed level 9 of prop_mlp_0, C = 1,
+     dense level 0 and hashed level 9 of the nerf MLP, C = 4, each into
+     its level's own gradient, uniform draws), a ragged Q, C = 3 into a
+     sub-range of the rows and the TPU kernel's 4,992-row table, each in
+     the variant the host rule picks (printed); the rule's variant for
+     each of the step's 30 levels; then the zip step's own indices and
+     gradients, captured during one step from the seeded init
+     (capture_zip_levels), with the distinct rows a warp's 32 updates
+     touch per level and the cases CAPTURED_LEVELS names; error /
+     max|control| within SCATTER_TOL, no update outside the drawn rows,
+     CUDA-event times, GB/s and per-level ms;
   4d. the gather probes: P1 (take_along_axis along either axis) against
      torch.take_along_dim and P2 (the shared-memory gather-select) against
      Tensor.gather, bit-equal, then the probe module's survey of the
@@ -68,11 +74,13 @@ Phases, each fatal on failure:
      stacks' backward plain (every grad within STEP_BWD_TOL) and with
      plain stacks (loss, metrics, every grad), and a non-zero pose grad;
   8. zip train slice: the shipped waymo_zipnerf training step at full
-     width (zip_lr_delay 0) on the same scene with semantic labels from
-     depth quantiles and an object mask on one corner, batch 32768: 2
-     warm-up and 12 timed steps (s/step, rays/s, peak memory, 30 K2
+     width (zip_lr_delay 0, zip_compute_dtype float32: JAX trains bf16
+     zip MLPs, the port f32 until B.2) on the same scene with semantic
+     labels from depth quantiles and an object mask on one corner, batch
+     32768: 2 warm-up and 12 timed steps (s/step, rays/s, peak memory, 30 K2
      gathers and 30 scatter-adds a step), a finite and falling loss, a
-     torch.profiler breakdown of one step with each scatter-add launch,
+     torch.profiler breakdown of one step with each scatter-add launch
+     and their sum,
      and one step against the same weights whose gathers run the plain
      pair (table[idx] forward, its accumulating scatter-add backward):
      every grad, each hash level's apart, within ZIP_STEP_GRAD_TOL, which
@@ -117,7 +125,11 @@ BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
 # 1.7e-4 to 6.2e-4 on every tensor (3.9e-4 on dx at L = 2): the limit
 # sits between. The same holds with the wgmma dgrad: its 1xTF32 control
 # (wgrad left 3xTF32) reads 3.8e-4 to 6.2e-4 on dx and at least 1.7e-4
-# on every dW and db downstream of it.
+# on every dW and db downstream of it. And with the wgmma wgrad (dz
+# transposed into big and small tiles in shared memory), at 7a's five
+# shapes: sound dW 6.5e-6 to 2.4e-5; both small-term wgmmas dropped
+# (1xTF32) 2.6e-4 to 3.9e-4; only act_big x dz_small dropped 1.9e-4 to
+# 2.6e-4; the small dz tile never stored 0.90 to 11, two runs differing.
 BWD_TOL = 1e-4
 # The train slice: warm-up and timed steps, and K1's launches per step:
 # forward, one for each uniform run (fine trunk_1..4 and trunk_6..7,
@@ -1030,25 +1042,49 @@ def zip_slice(torch, scene, views, view_rays, card):
 
 
 def sass_check(so, nvcc):
-  """The SASS of K1's f32 forward and dgrad kernels in the built library
-  (cuobjdump -sass, beside nvcc): each must hold wgmma (HGMMA) and TMA
-  loads (UTMALDG)."""
+  """The SASS of K1's f32 forward, dgrad and wgrad kernels in the built
+  library (cuobjdump -sass, beside nvcc): each must hold wgmma (HGMMA) and
+  TMA loads (UTMALDG)."""
   tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
   out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                        text=True, timeout=120)
   check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-500:]}")
   found = {}
+  labels = (("f32 forward", "k1_wgmma_kernelILb0E"),
+            ("dgrad", "k1_wgmma_kernelILb1E"),
+            ("wgrad", "fused_mlp_bwd_wgrad_kernel"))
   for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
     name = body.split("\n", 1)[0].strip()
-    for label, key in (("f32 forward", "k1_wgmma_kernelILb0E"),
-                       ("dgrad", "k1_wgmma_kernelILb1E")):
+    for label, key in labels:
       if key in name:
         found[label] = (body.count("HGMMA"), body.count("UTMALDG"))
   log(f"  SASS of K1's wgmma kernels (HGMMA, UTMALDG): {found}")
-  for label in ("f32 forward", "dgrad"):
+  for label, _ in labels:
     hgmma, utmaldg = found.get(label, (0, 0))
     check(hgmma > 0 and utmaldg > 0, f"K1 {label}: the SASS lacks wgmma "
           f"or TMA loads (HGMMA {hgmma}, UTMALDG {utmaldg})")
+
+
+def spill_check(build_log):
+  """ptxas's spill stores and loads of K1's wgmma kernels (forward, dgrad,
+  wgrad) from the build's -v lines: each must be 0."""
+  spills, name = {}, None
+  for line in build_log.splitlines():
+    m = re.search(r"(?:Compiling entry function|Function properties for)"
+                  r" '?([\w$]+)", line)
+    if m:
+      name = m.group(1)
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if m and name:
+      spills[name] = (int(m.group(1)), int(m.group(2)))
+  k1 = {n: v for n, v in spills.items()
+        if "k1_wgmma_kernel" in n or "fused_mlp_bwd_wgrad_kernel" in n}
+  log(f"  spill stores/loads of K1's wgmma kernels: "
+      f"{ {n[-40:]: v for n, v in k1.items()} }")
+  check(len(k1) == 3, f"ptxas lines of K1's three wgmma kernels not found: "
+        f"{sorted(k1)}")
+  check(all(v == (0, 0) for v in k1.values()), f"K1's wgmma kernels spill: "
+        f"{k1}")
 
 
 def bound_ms(bytes_, flops=0.0, flop_rate=None):
@@ -1061,17 +1097,25 @@ def bound_ms(bytes_, flops=0.0, flop_rate=None):
 
 
 def scatter_case(torch, hash_ops, name, rows, c, q, lo, hi, iters):
-  """The scatter-add kernel against scatter_add_rows_plain (index_add_,
-  atomic on CUDA too) and an f64 index_add_ control on the same inputs,
-  with table[idx]'s backward (index_put_ accumulate) read beside:
-  indices uniform in the level's rows [lo, hi) of a [rows, C] table,
-  N(0, 1) gradients. Error / max|control| for both, CUDA-event times in
-  turns, the bytes bound and GB/s."""
+  """Indices uniform in the level's rows [lo, hi) of a [rows, C] table,
+  N(0, 1) gradients, through `scatter_check`."""
   gen = torch.Generator(device="cuda").manual_seed(q * 3 + c + lo)
   idx = torch.randint(lo, hi, (q,), generator=gen, device="cuda",
                       dtype=torch.int32)
   idx[0], idx[-1] = lo, hi - 1
   g = torch.randn(q, c, generator=gen, device="cuda")
+  return scatter_check(torch, hash_ops, name, idx, g, rows, lo, hi, iters)
+
+
+def scatter_check(torch, hash_ops, name, idx, g, rows, lo, hi, iters):
+  """The scatter-add kernel (in the variant `scatter_variant` picks)
+  against scatter_add_rows_plain (index_add_, atomic on CUDA too) and an
+  f64 index_add_ control on the same inputs, with table[idx]'s backward
+  (index_put_ accumulate) read beside. Error / max|control| for each, no
+  update outside [lo, hi), CUDA-event times in turns, the bytes bound and
+  GB/s."""
+  q, c = g.shape
+  chosen = hash_ops.scatter_variant(rows, c)
   got = hash_ops.scatter_add_rows(idx, g, rows)
   plain = hash_ops.scatter_add_rows_plain(idx, g, rows)
   # table[idx]'s own backward, the plain pair's in phase 8
@@ -1098,9 +1142,9 @@ def scatter_case(torch, hash_ops, name, rows, c, q, lo, hi, iters):
   k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
   nbytes = q * (4 + 4 * c) + rows * c * 4   # idx, g read; dT written
   b_ms, b_by = bound_ms(nbytes, q * c, F32_RATE)
-  log(f"  {name}: T={rows} C={c} Q={q} rows [{lo}, {hi}): err/max|f64| "
-      f"{err:.2e} (plain f32 index_add_ {plain_err:.2e}, index_put_ "
-      f"accumulate {put_err:.2e}; tol {SCATTER_TOL})"
+  log(f"  {name}: T={rows} C={c} Q={q} rows [{lo}, {hi}): variant {chosen}: "
+      f"err/max|f64| {err:.2e} (plain f32 index_add_ {plain_err:.2e}, "
+      f"index_put_ accumulate {put_err:.2e}; tol {SCATTER_TOL})"
       f" kernel {k_ms:.3f} ms ({nbytes / k_ms / 1e6:.0f} GB/s, "
       f"{q / k_ms / 1e6:.1f} G upd/s) plain {p_ms:.3f} ms index_add_ "
       f"{lib:.3f} ms bound {b_ms:.3f} ms ({b_by}) [{k1:.3f}/{k2:.3f} vs "
@@ -1112,7 +1156,63 @@ def scatter_case(torch, hash_ops, name, rows, c, q, lo, hi, iters):
   del idx, g, got
   torch.cuda.empty_cache()
   return dict(err=err, abs_err=abs_err, ms=k_ms, plain_ms=p_ms,
-              library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+              library_ms=lib, bound_ms=b_ms, bound_by=b_by, variant=chosen)
+
+
+# Phase 4c's captured cases: (MLP, level) of the zip step, one of each
+# kind: prop_mlp_0's dense levels 0 (the smallest), 2 (the largest that
+# fits a block's shared memory; the rule picks warp aggregation there)
+# and 3 (the smallest that does not), its hashed level 9, prop_mlp_1's
+# level 1 (the largest the rule sends through shared memory), and the
+# nerf MLP's dense level 0 and hashed level 9.
+CAPTURED_LEVELS = (("prop_mlp_0", 0), ("prop_mlp_0", 2), ("prop_mlp_0", 3),
+                   ("prop_mlp_0", 9), ("prop_mlp_1", 1), ("nerf_mlp", 0),
+                   ("nerf_mlp", 9))
+
+
+def capture_zip_levels(torch, scene, want=CAPTURED_LEVELS):
+  """One zip train step (zip_train_setup: the seeded init, batch 32,768)
+  whose hash encoders record their gathers. Returns ({(mlp, level): (idx
+  [Q] int32, g [Q, C], rows)} for the levels in `want`, the indices each
+  level's gather took and the gradient its backward scattered, and
+  {(mlp, level): mean distinct rows among a warp's 32 consecutive
+  updates} for every level)."""
+  from snerf_tpu_torch.models.hashgrid import HashEncoding
+  from snerf_tpu_torch.ops import hash_ops
+
+  *_, state, step = zip_train_setup(torch, scene)
+  captured, distinct = {}, {}
+
+  def recorder(mlp, spec):
+    calls = [0]
+
+    def gather(table, idx):
+      key = (mlp, calls[0] % spec.num_levels)
+      calls[0] += 1
+      flat = idx.reshape(-1)
+      srt = flat[:flat.numel() // 32 * 32].view(-1, 32).sort(dim=1).values
+      distinct[key] = float(1 + (srt[:, 1:] != srt[:, :-1]).sum(1).float()
+                            .mean())
+      del srt
+      out = hash_ops.gather_rows(table, idx)
+      if key in want and out.requires_grad:
+        def keep(g, key=key, flat=flat, rows=table.shape[0]):
+          captured[key] = (flat, g.reshape(-1, g.shape[-1]).contiguous(),
+                           rows)
+        out.register_hook(keep)
+      return out
+    return gather
+
+  for name, m in state.model.named_modules():
+    if isinstance(m, HashEncoding):
+      m.gather_fn = recorder(name.split(".")[0], m.spec)
+  step(state, torch.Generator(device="cuda").manual_seed(0))
+  torch.cuda.synchronize()
+  del state, step
+  torch.cuda.empty_cache()
+  check(set(captured) == set(want), f"captured levels {sorted(captured)}, "
+        f"wanted {sorted(want)}")
+  return captured, distinct
 
 
 def probe_phase(torch, iters=20):
@@ -1221,7 +1321,7 @@ def profile_zip_step(torch, step_fn):
   def kind(name):
     if "gather_rows_kernel" in name:
       return "K2 gather"
-    if "scatter_add_rows_kernel" in name:
+    if "scatter_add_rows" in name:
       return "scatter-add"
     if "gemm" in name.lower() or "gemv" in name.lower():
       return "matmul (cuBLAS)"
@@ -1275,8 +1375,9 @@ def profile_zip_step(torch, step_fn):
   for k in list(out)[:8]:
     log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
   per_launch = [ms for _, ms in sorted(scatters)]
-  log(f"    scatter-add launches in order ({len(per_launch)}; the backward "
-      f"runs nerf_mlp, prop_mlp_1, prop_mlp_0, each level 9..0): "
+  log(f"    scatter-add launches in order ({len(per_launch)}, "
+      f"{sum(per_launch):.2f} ms together; the backward runs nerf_mlp, "
+      f"prop_mlp_1, prop_mlp_0, each level 9..0): "
       + " ".join(f"{v:.3f}" for v in per_launch))
   for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
     log(f"    kernel {name[:90]}: {ms:.2f} ms")
@@ -1284,23 +1385,24 @@ def profile_zip_step(torch, step_fn):
   return out
 
 
-def zip_train_slice(torch, scene, card):
-  """Phase 8: the waymo_zipnerf training step at full width. Returns the
-  K2 gather and scatter-add launch counts of the timed steps."""
+def zip_train_setup(torch, scene, log_config=False):
+  """The waymo_zipnerf training step at full width on the synthetic scene
+  with semantic labels from depth quantiles and an object mask on one
+  corner: (zcfg, tcfg, zscene, dev_scene, state, step)."""
   import dataclasses
 
   import numpy as np
   from snerf_tpu_torch.config import (load_config, zip_model_config,
                                       zip_train_config)
   from snerf_tpu_torch.data.sampler import scene_to_device
-  from snerf_tpu_torch.models.zipnerf import ZipNerfModel
-  from snerf_tpu_torch.ops import hash_ops
   from snerf_tpu_torch.train import zip_trainer as zt
 
-  # lr_delay 0: the shipped 5,000-step warm-up starts at lr 1e-10
+  # lr_delay 0: the shipped 5,000-step warm-up starts at lr 1e-10.
+  # zip_compute_dtype float32: JAX trains bf16 zip MLPs here, the port
+  # trains f32 until B.2 (zip_train_config raises on bf16 flags).
   cfg = load_config(["--config",
                      os.path.join(ROOT, "configs", "waymo_zipnerf"),
-                     "--zip_lr_delay", "0"])
+                     "--zip_lr_delay", "0", "--zip_compute_dtype", "float32"])
   zcfg, tcfg = zip_model_config(cfg), zip_train_config(cfg)
   # semantic labels from depth quantiles, an object mask on one corner
   depth = scene.depths
@@ -1310,26 +1412,39 @@ def zip_train_slice(torch, scene, card):
   zscene = dataclasses.replace(
       scene, semantics=np.digitize(depth, edges).astype(np.int32),
       skymask=mask)
-  n_pix, n_patches = zt._patch_split(tcfg)
-  log(f"[zip train slice] waymo_zipnerf with zip_lr_delay 0 (shipped "
-      f"{load_config(['--config', os.path.join(ROOT, 'configs', 'waymo_zipnerf')]).zip_lr_delay}"
-      f"): batch {tcfg.batch_size} ({n_pix} pixels + {n_patches} patches of "
-      f"{tcfg.patch_size}^2), samples {zcfg.num_prop_samples}/"
-      f"{zcfg.num_nerf_samples} x {zcfg.sample_n}, {zcfg.grid_num_levels} "
-      f"levels at 2^{zcfg.grid_log2_hashmap_size}, grids "
-      f"{zcfg.prop_grid_resolutions}/{zcfg.nerf_grid_resolution}, "
-      f"{zcfg.class_num} classes, lr {tcfg.lr_init} -> {tcfg.lr_final}, "
-      f"grad clip {tcfg.grad_max_norm}, depth {tcfg.depth_loss_mult} "
-      f"(completion {tcfg.depth_complete}), semantic "
-      f"{tcfg.semantic_loss_mult}, float32; scene "
-      f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
-      f"{len(scene.i_train)} train views")
+  if log_config:
+    n_pix, n_patches = zt._patch_split(tcfg)
+    log(f"[zip train slice] waymo_zipnerf with zip_lr_delay 0 (shipped "
+        f"{load_config(['--config', os.path.join(ROOT, 'configs', 'waymo_zipnerf')]).zip_lr_delay}"
+        f"): batch {tcfg.batch_size} ({n_pix} pixels + {n_patches} patches "
+        f"of {tcfg.patch_size}^2), samples {zcfg.num_prop_samples}/"
+        f"{zcfg.num_nerf_samples} x {zcfg.sample_n}, {zcfg.grid_num_levels} "
+        f"levels at 2^{zcfg.grid_log2_hashmap_size}, grids "
+        f"{zcfg.prop_grid_resolutions}/{zcfg.nerf_grid_resolution}, "
+        f"{zcfg.class_num} classes, lr {tcfg.lr_init} -> {tcfg.lr_final}, "
+        f"grad clip {tcfg.grad_max_norm}, depth {tcfg.depth_loss_mult} "
+        f"(completion {tcfg.depth_complete}), semantic "
+        f"{tcfg.semantic_loss_mult}, float32 (JAX: bf16 MLPs); scene "
+        f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
+        f"{len(scene.i_train)} train views")
   dev_scene = scene_to_device(zscene, "cuda")
   state = zt.create_zip_train_state(0, zcfg, tcfg, zscene.num_images,
                                     device="cuda")
-  model = state.model
-  step = zt.make_zip_train_step(model, tcfg, dev_scene, zscene.i_train,
+  step = zt.make_zip_train_step(state.model, tcfg, dev_scene, zscene.i_train,
                                 zscene.near, zscene.far)
+  return zcfg, tcfg, zscene, dev_scene, state, step
+
+
+def zip_train_slice(torch, scene, card):
+  """Phase 8: the waymo_zipnerf training step at full width. Returns the
+  K2 gather and scatter-add launch counts of the timed steps."""
+  from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import hash_ops
+  from snerf_tpu_torch.train import zip_trainer as zt
+
+  zcfg, tcfg, zscene, dev_scene, state, step = zip_train_setup(
+      torch, scene, log_config=True)
+  model = state.model
   gen = torch.Generator(device="cuda").manual_seed(0)
   kernels = (hash_ops.gather_rows, hash_ops.scatter_add_rows)
 
@@ -1478,6 +1593,7 @@ def main() -> int:
           or "Compiling entry" in line):
         log(f"  {line.strip()}")
   sass_check(built["fused_mlp"][0], _cuda._nvcc())
+  spill_check(built["fused_mlp"][1])
   phase_done("1-3 device, build")
 
   # 4. kernel against plain
@@ -1523,6 +1639,12 @@ def main() -> int:
   gresults = {c[0]: gather_case(torch, hash_ops, *c) for c in gcases}
   phase_done("4b K2")
 
+  # the synthetic scene of phases 4c (captured indices), 5-8
+  H, W = 96, 128
+  scene = make_synthetic_scene(num_images=6, H=H, W=W)
+  views = list(scene.i_test)[:2]
+  check(len(views) == 2, f"expected 2 held-out views, got {views}")
+
   # 4c. the scatter-add kernel at the zip train step's shapes: one level
   # of each kind per MLP into that level's own gradient (dense level 0:
   # 17^3 rows; hashed level 9: 2^21 rows), a ragged Q, one into a sub-range
@@ -1533,6 +1655,8 @@ def main() -> int:
   scases = [
       ("prop_mlp_0 level 0 (dense)", prop0_spec.sizes[0], 1, q_prop, 0,
        prop0_spec.sizes[0], 3),
+      ("prop_mlp_0 level 3 (dense)", prop0_spec.sizes[3], 1, q_prop, 0,
+       prop0_spec.sizes[3], 3),
       ("prop_mlp_0 level 9 (hashed)", prop0_spec.sizes[9], 1, q_prop, 0,
        prop0_spec.sizes[9], 3),
       ("nerf level 0 (dense)", nerf_spec.sizes[0], 4, q_nerf, 0,
@@ -1543,9 +1667,40 @@ def main() -> int:
        1000, 1 << 20, 20),
       ("TPU kernel shape", 4992, 8, 1 << 17, 0, 4992, 50),
   ]
-  sresults = {c[0]: scatter_case(torch, hash_ops, *c) for c in scases}
+  sresults = {c[0]: scatter_case(torch, hash_ops, *c)
+              for c in scases}
   log("  per level at the train step's shapes, ms: " + ", ".join(
-      f"{n} {sresults[n]['ms']:.3f}" for n, *_ in scases[:4]))
+      f"{n} {sresults[n]['ms']:.3f}" for n, *_ in scases[:5]))
+  # the host rule (hash_ops.scatter_variant) on the step's 30 levels
+  specs = (("prop_mlp_0", prop0_spec), ("prop_mlp_1", prop1_spec),
+           ("nerf_mlp", nerf_spec))
+  for mlp, spec in specs:
+    log(f"  scatter variant by level, {mlp} (C={spec.level_dim}): " + ", ".join(
+        f"{t} {hash_ops.scatter_variant(t, spec.level_dim)}"
+        for t in spec.sizes))
+  # the zip step's own indices and gradients, one level of each kind
+  log("[kernel] hash_scatter_add at the zip train step's captured indices "
+      "and gradients (one step from the seeded init, batch 32768)")
+  captured, distinct = capture_zip_levels(torch, scene)
+  for mlp, spec in specs:
+    log(f"  distinct rows among a warp's 32 consecutive updates, {mlp} "
+        "levels 0..9: " + " ".join(f"{distinct[(mlp, l)]:.2f}"
+                                   for l in range(spec.num_levels)))
+  cresults = {}
+  for mlp, lvl in CAPTURED_LEVELS:
+    idx, g, rows = captured.pop((mlp, lvl))
+    kind_txt = "dense" if rows < 2 ** 21 else "hashed"
+    cresults[(mlp, lvl)] = scatter_check(
+        torch, hash_ops, f"captured {mlp} level {lvl} ({kind_txt}, "
+        f"{distinct[(mlp, lvl)]:.2f} distinct rows a warp)", idx, g, rows,
+        0, rows, 3)
+    del idx, g
+  log("  captured, chosen variant ms (bound, index_add_, err/max|f64|): "
+      + ", ".join(f"{m}/{l} {r['variant']} {r['ms']:.3f} ({r['bound_ms']:.3f}"
+                  f", {r['library_ms']:.3f}, {r['err']:.1e})"
+                  for (m, l), r in cresults.items()))
+  del captured
+  torch.cuda.empty_cache()
   phase_done("4c scatter-add")
 
   # 4d. the gather probes P1 and P2, and the primitive survey
@@ -1583,10 +1738,6 @@ def main() -> int:
   plain_model = MipNerfModel(mcfg, stack_fn=fm.fused_mlp_plain,
                              device="cuda").eval()
   plain_model.load_state_dict(model.state_dict())
-  H, W = 96, 128
-  scene = make_synthetic_scene(num_images=6, H=H, W=W)
-  views = list(scene.i_test)[:2]
-  check(len(views) == 2, f"expected 2 held-out views, got {views}")
   render_fn = make_eval_render_fn(model, white_bkgd=cfg.white_bkgd)
 
   def view_rays(i):

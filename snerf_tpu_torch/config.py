@@ -18,6 +18,8 @@ if TYPE_CHECKING:
   from snerf_tpu_torch.train.zip_trainer import ZipTrainConfig
 
 _T_TRANSFORM = {0: "log", 1: "disparity", 2: "linear"}
+# the values of --zip_compute_dtype that make the JAX adapter pick bf16
+_BF16_NAMES = ("bfloat16", "bf16")
 
 
 def model_config(cfg: Config) -> MipNerfConfig:
@@ -65,8 +67,10 @@ def train_config(cfg: Config) -> TrainConfig:
 
 def zip_model_config(cfg: Config) -> ZipNerfConfig:
   """ZipNerfConfig for the eval path, as `Config.zip_model_config()`
-  builds it, with float32 activations (render.py forces them for eval).
-  An encoder other than hash or a GLO embedding raises."""
+  builds it, with float32 activations whatever `zip_compute_dtype` says:
+  render.py and eval.py force float32 there too. Training reads the flag
+  in `zip_train_config`. An encoder other than hash or a GLO embedding
+  raises."""
   return ZipNerfConfig(
       num_prop_samples=tuple(cfg.zip_num_prop_samples),
       num_nerf_samples=cfg.zip_num_nerf_samples,
@@ -94,7 +98,18 @@ def zip_train_config(cfg: Config) -> ZipTrainConfig:
   """ZipTrainConfig as `Config.zip_train_config()` builds it, with its
   encoder-aware lr rule: 0.01 is the hash-table schedule; for an encoder
   other than hash, flags left at their defaults become lr 0.002 -> 0.0002
-  and encoder_lr_mult 4."""
+  and encoder_lr_mult 4.
+
+  The JAX trainer runs the zip MLPs in `zip_compute_dtype`, bfloat16 by
+  default ("bfloat16" or "bf16" select it, anything else float32); the
+  port trains them in float32 only, so a bf16 value raises until the
+  bf16 trunks (ROADMAP Queue 1, item 6, B.2) are ported: pass
+  `--zip_compute_dtype float32`."""
+  if cfg.zip_compute_dtype in _BF16_NAMES:
+    raise NotImplementedError(
+        f"zip_compute_dtype {cfg.zip_compute_dtype!r}: the port trains the "
+        "zip MLPs in float32 only until B.2 (bf16 trunks, ROADMAP Queue 1, "
+        "item 6) is ported; pass --zip_compute_dtype float32")
   from snerf_tpu_torch.train.zip_trainer import ZipTrainConfig
   lr_init, lr_final = cfg.zip_lr_init, cfg.zip_lr_final
   enc_mult = cfg.zip_encoder_lr_mult

@@ -80,18 +80,42 @@
 //   dgrad: dz_{i-1} = (dz_i W_i^T) * (act_i > 0), or dx = dz_0 W_0^T,
 //          on the wgmma mainloop above;
 //   wgrad: dW_i = act_i^T dz_i, db_i = sum over rows of dz_i.
-// wgrad reduces over N, the row index of both stored operands, so both
-// are MN-major, which TF32 wgmma does not take; it stays on mma.sync
-// 3xTF32 with a 3-stage cp.async ring and 128 x 128 block tiles, the
-// operands staged so the fragment reads are bank-conflict free (act^T
-// staged [k][m]). It reduces over N (~5e5 rows) into only (D/128)^2
-// output tiles, so N is split across blocks (the caller picks the split;
-// the truncating tensor-core accumulator drifts with the rows a split
-// sums, ~1.7e-5 of max|dW| at 2,048 rows): each writes an f32 partial
-// tile (and, in the first tile row, the column sums of dz for db), and a
-// second kernel sums the partials in split order. No atomics: two
-// identical steps give bit-identical grads. The ReLU mask of the last
-// layer (when last_relu) is an elementwise pass in the wrapper.
+// wgrad on wgmma + TMA, 3xTF32 (mma.sync, the first design, ran at the
+// ~50 TFLOP/s above). wgrad reduces over N, the row index of both stored
+// operands, so both are MN-major, and TF32 wgmma reads B only K-major.
+//   * A = act^T in the RS form: its registers are filled from shared
+//     memory, so its staging is free. TMA boxes of [32 rows, 32 columns]
+//     (the 128-byte swizzle's inner limit) land act as [k][m]; the
+//     consumer threads read their fragments and split them, as the
+//     forward does. Along k the 32 lanes would hit each bank twice, so the
+//     k positions of a wgmma step are permuted: position j reads stage row
+//     2j (j < 4) or 2(j - 4) + 1, and the swizzle then puts the lanes on
+//     32 banks.
+//   * B = dz, transposed in shared memory: the two consumer warpgroups
+//     turn each [k][n] TMA stage into K-major [n][k] big and small TF32
+//     tiles in the swizzled layout `smem_desc` describes (k in the same
+//     permuted order), each thread a column and half the rows, once a
+//     stage rather than once per warp along M, while the previous stage's
+//     wgmmas run. They fence their generic stores into the async proxy
+//     (fence.proxy.async.shared::cta) and meet at a named barrier before
+//     any wgmma reads the tiles. The threads sum their columns for db. A
+//     third warpgroup for the transpose, or a producer warp (registers
+//     are allocated in groups of 4 warps), caps the block at 168 registers
+//     a thread, under which the consumers spilled; with 256 threads they
+//     may take 255, and thread 0 issues the TMA loads after the barrier
+//     that ends a stage's reads, so no mbarrier hands stages back.
+//   * Two consumer warpgroups of 64 rows run m64n128k8 on a 128 x 128
+//     tile of dW, a block per tile and split of N. The tensor cores' f32
+//     accumulation truncates, so a run's error grows with its rows: every
+//     2,048 rows the accumulator is added into the block's f32 partial
+//     (a deterministic read-modify-write of the block's own tile) and
+//     cleared, which lets a block cover a long split: the caller picks
+//     ~16 waves of blocks, and a second kernel sums the partials in split
+//     order. No atomics: two identical steps give bit-identical grads.
+//   * Stages: 4 raw (act and dz boxes, 32 KB) and 3 transposed (big and
+//     small, 32 KB), 224 KB.
+// The ReLU mask of the last layer (when last_relu) is an elementwise pass
+// in the wrapper.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_bf16.h>
@@ -699,17 +723,17 @@ EncodeTiledFn encode_fn() {
 }
 
 // A map over `slabs` row-major [rows, d] f32 slabs at ptr, boxes of
-// [128 rows, kHBK floats] with the 128-byte swizzle; rows past `rows` of a
+// [box_rows, kHBK floats] with the 128-byte swizzle; rows past `rows` of a
 // slab read as zeros.
 cudaError_t encode(CUtensorMap* map, const void* ptr, int d, long long rows,
-                   int slabs) {
+                   int slabs, int box_rows = kHBM) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
                                  (cuuint64_t)d * 4 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {kHBK, kHBM, 1};
+  const cuuint32_t box[3] = {kHBK, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
@@ -758,159 +782,235 @@ int launch_wgmma(const void* in, const void* wb, const void* ws,
 }
 
 // ---------------------------------------------------------------- wgrad
-// f32 only. A GEMM tile C[128 x 128] += A[128 x K] B[K x 128] with both
-// operands K-outer in device memory, as wgrad has them (K = N rows):
-//   A[m][k] = act[k * d + m], staged [kBK][kBM + 8];
-//   B[k][n] = dz[k * d + n],  staged [kBK][kBN + 8].
-// The strides put the 32 lanes of every fragment read on 32 banks.
-struct WgradSmem {
-  static constexpr int kAStride = kBM + 8;
-  static constexpr int kAStage = kBK * kAStride;
-  static constexpr int kBStride = kBN + 8;
-  static constexpr int kBStage = kBK * kBStride;
-  static constexpr size_t kBytes =
-      (size_t)kStages * (kAStage + kBStage) * sizeof(float);
+// dW = act^T dz over a split of N, on the wgmma + TMA machinery above; see
+// the note at the top. A block owns one 128 x 128 tile of dW (rows m0.. of
+// act's columns, columns n0.. of dz's) and one split of N, K = N rows in
+// stages of kHBK = 32.
+constexpr int kWThreads = 256;  // two consumer warpgroups; thread 0 loads
+constexpr int kWRaw = 4;      // raw stages: the act and dz boxes, by TMA
+constexpr int kWB = 3;        // dz stages transposed and split, K-major
+constexpr uint32_t kBoxBytes = kHBK * 32 * 4;   // one [32 rows, 32 floats]
+constexpr uint32_t kRawHalf = 4 * kBoxBytes;    // 128 columns: 16 KB
+constexpr uint32_t kRawBytes = 2 * kRawHalf;    // act, then dz
+constexpr uint32_t kBPairBytes = 2 * kTileBytes;  // big, small
+constexpr uint32_t kWBarOffset = kWRaw * kRawBytes + kWB * kBPairBytes;
+constexpr int kConsumerBarrier = 1;  // named barrier of the 256 consumers
+// The truncating tensor-core accumulator drifts with the rows it sums:
+// every 2,048 rows it is added into the block's f32 partial and cleared.
+constexpr int kPromoteStages = 2048 / kHBK;
+constexpr size_t kWSmem = kWBarOffset + kWRaw * sizeof(uint64_t) +
+                          kHBN * sizeof(float) + 1024;
+static_assert(kWSmem <= 232448, "wgrad's stages exceed 227 KB");
+
+// The stages of a wgrad block at fixed offsets from its 1024-byte aligned
+// base. A raw half holds 128 columns of 32 rows as four TMA boxes of
+// [32 rows, 32 floats] in the 128-byte swizzle; element (k, c) sits at
+// raw_at(k, c).
+struct WRing {
+  unsigned char* base;
+  __device__ float* act(int s) const {
+    return reinterpret_cast<float*>(base + s * kRawBytes);
+  }
+  __device__ float* dz(int s) const {
+    return reinterpret_cast<float*>(base + s * kRawBytes + kRawHalf);
+  }
+  __device__ float* b_big(int s) const {
+    return reinterpret_cast<float*>(base + kWRaw * kRawBytes +
+                                    s * kBPairBytes);
+  }
+  __device__ float* b_small(int s) const {
+    return b_big(s) + kTileBytes / 4;
+  }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + kWBarOffset) + s;
+  }
+  __device__ float* col(int c) const {  // db's second halves
+    return reinterpret_cast<float*>(full(kWRaw)) + c;
+  }
 };
+__device__ __forceinline__ int raw_at(int k, int c) {
+  return (c >> 5) * 1024 + k * 32 + ((((c & 31) >> 2) ^ (k & 7)) << 2) +
+         (c & 3);
+}
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-// Stage the A tile at (m0, k0) and the B tile at (k0, n0). k rows at or
-// past k_lim (the ragged N) are zero-filled.
-__device__ __forceinline__ void load_wgrad_stage(
-    float* As, float* Bs, const float* __restrict__ a,
-    const float* __restrict__ b, int d, long long m0, long long n0,
-    long long k0, long long k_lim) {
-  using S = WgradSmem;
-  constexpr int kC = 4;  // floats per 16-byte copy
+// TMA loads of stage p of a wgrad block into raw slot p % kWRaw: the
+// block's 128 act columns from m0 and 128 dz columns from n0 over the 32
+// rows from k_begin + 32p.
+__device__ __forceinline__ void wgrad_load(const WRing& ring,
+                                           const CUtensorMap* tm_act,
+                                           const CUtensorMap* tm_dz, int p,
+                                           long long k_begin, int m0, int n0) {
+  const int s = p % kWRaw;
+  mbar_expect_tx(ring.full(s), kRawBytes);
+  const int k0 = (int)(k_begin + (long long)p * kHBK);
 #pragma unroll
-  for (int i = 0; i < kBM * kBK / kC / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / (kBM / kC), c = (e % (kBM / kC)) * kC;
-    const bool valid = k0 + r < k_lim;
-    const float* src = a + (valid ? (k0 + r) * d + m0 + c : 0);
-    cp_async16(As + r * S::kAStride + c, src, valid);
-  }
-#pragma unroll
-  for (int i = 0; i < kBK * kBN / kC / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / (kBN / kC), c = (e % (kBN / kC)) * kC;
-    const bool valid = k0 + r < k_lim;
-    const float* src = b + (valid ? (k0 + r) * d + n0 + c : 0);
-    cp_async16(Bs + r * S::kBStride + c, src, valid);
+  for (int q = 0; q < 4; ++q) {
+    tma_load(ring.act(s) + q * 1024, tm_act, ring.full(s), m0 + 32 * q, k0,
+             0);
+    tma_load(ring.dz(s) + q * 1024, tm_dz, ring.full(s), n0 + 32 * q, k0, 0);
   }
 }
 
-// acc = A[m0.., k_begin..k_end) B[k_begin..k_end), n0..] over one 128 x
-// 128 tile, 3xTF32. With col_sum non-null, threads 0..127 also add up
-// column threadIdx.x of B over the k range, in order.
-__device__ __forceinline__ void wgrad_mainloop(
-    float (&acc)[kMT][kNT][4], float* As, float* Bs,
-    const float* __restrict__ a, const float* __restrict__ b, int d,
-    long long m0, long long n0, long long k_begin, long long k_end,
-    float* col_sum) {
-  using S = WgradSmem;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int g = lane / 4, t = lane % 4;
+// One stage of a consumer warpgroup. A = act^T: its fragments from the
+// raw act stage, split into (ab[kBuf], as[kBuf]). B = dz: consumer thread
+// ct turns column c = ct % 128 of the raw dz stage, rows 16 (ct / 128)
+// .. + 15, into row c of the K-major big and small tiles of slot it % kWB
+// (the 128-byte swizzle: 16-byte chunk j of row c at j ^ (c % 8)), and
+// adds the values into col for db. wgmma k position j of step kk reads
+// stage row 8kk + 2j (j < 4) or 8kk + 2(j - 4) + 1: with the swizzle the
+// 32 lanes then read act on 32 banks, and the tiles hold dz in the same
+// order. The generic stores are fenced into the async proxy, and a
+// barrier of both warpgroups completes the tiles, ends every read of the
+// raw stage (thread 0 then loads stage it + kWRaw into its slot) and, a
+// stage on, frees the tiles' slot (a warpgroup reaches it only after the
+// wgmmas of three stages back are done); the 3 x 4 wgmmas run as one
+// group.
+template <int kBuf>
+__device__ __forceinline__ void wgrad_stage(
+    const WRing& ring, float (&acc)[64], uint32_t (&ab)[2][4][4],
+    uint32_t (&as)[2][4][4], float& col, int& it, int stages, int r_lo,
+    int t, const CUtensorMap* tm_act, const CUtensorMap* tm_dz,
+    long long k_begin, int m0, int n0) {
+  const int s = it % kWRaw, sb = it % kWB;
+  mbar_wait(ring.full(s), (it / kWRaw) & 1);
+  const float* A = ring.act(s);
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  const int ktiles = (int)((k_end - k_begin + kBK - 1) / kBK);
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles)
-      load_wgrad_stage(As + s * S::kAStage, Bs + s * S::kBStage, a, b, d,
-                       m0, n0, k_begin + s * kBK, k_end);
-    cp_async_commit();
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = 8 * kk + 2 * t;
+    split(A[raw_at(k, r_lo)], ab[kBuf][kk][0], as[kBuf][kk][0]);
+    split(A[raw_at(k, r_lo + 8)], ab[kBuf][kk][1], as[kBuf][kk][1]);
+    split(A[raw_at(k + 1, r_lo)], ab[kBuf][kk][2], as[kBuf][kk][2]);
+    split(A[raw_at(k + 1, r_lo + 8)], ab[kBuf][kk][3], as[kBuf][kk][3]);
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) {
-      const int s = nk % kStages;
-      load_wgrad_stage(As + s * S::kAStage, Bs + s * S::kBStage, a, b, d,
-                       m0, n0, k_begin + (long long)nk * kBK, k_end);
-    }
-    cp_async_commit();
-    const float* A = As + (kt % kStages) * S::kAStage;
-    const float* B = Bs + (kt % kStages) * S::kBStage;
-    if (col_sum != nullptr && threadIdx.x < kBN) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < kBK; ++r) s += B[r * S::kBStride + threadIdx.x];
-      *col_sum += s;
+  const int c = threadIdx.x & 127, half = threadIdx.x >> 7;
+  const float* src = ring.dz(s);
+  float* big = ring.b_big(sb) + c * kHBK;
+  float* small = ring.b_small(sb) + c * kHBK;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int a = 2 * half + i;
+    float v[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      v[kk] = src[raw_at(8 * a + kk, c)];
+      col += v[kk];
     }
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t a_big[kMT][4], a_small[kMT][4];
+    for (int h = 0; h < 2; ++h) {
+      uint32_t vb[4], vs[4];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const float* ap = A + (kk + t) * S::kAStride + wm * kWM + mt * 16 + g;
-        split(ap[0], a_big[mt][0], a_small[mt][0]);
-        split(ap[8], a_big[mt][1], a_small[mt][1]);
-        split(ap[4 * S::kAStride], a_big[mt][2], a_small[mt][2]);
-        split(ap[4 * S::kAStride + 8], a_big[mt][3], a_small[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const float* bp = B + (kk + t) * S::kBStride + wn * kWN + nt * 8 + g;
-        uint32_t b0_big, b0_small, b1_big, b1_small;
-        split(bp[0], b0_big, b0_small);
-        split(bp[4 * S::kBStride], b1_big, b1_small);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma(acc[mt][nt], a_big[mt], b0_small, b1_small);
-          mma(acc[mt][nt], a_small[mt], b0_big, b1_big);
-          mma(acc[mt][nt], a_big[mt], b0_big, b1_big);
-        }
-      }
+      for (int e = 0; e < 4; ++e) split(v[2 * e + h], vb[e], vs[e]);
+      const int off = ((2 * a + h) ^ (c & 7)) << 2;
+      *reinterpret_cast<uint4*>(big + off) =
+          make_uint4(vb[0], vb[1], vb[2], vb[3]);
+      *reinterpret_cast<uint4*>(small + off) =
+          make_uint4(vs[0], vs[1], vs[2], vs[3]);
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the stages
+  fence_proxy_async_shared();
+  named_barrier_sync(kConsumerBarrier, kWThreads);
+  if (threadIdx.x == 0 && it + kWRaw < stages)
+    wgrad_load(ring, tm_act, tm_dz, it + kWRaw, k_begin, m0, n0);
+  const uint64_t db = smem_desc(ring.b_big(sb));
+  const uint64_t ds = smem_desc(ring.b_small(sb));
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // small terms first
+    wgmma_tf32(acc, ab[kBuf][kk], ds + 2 * kk);
+    wgmma_tf32(acc, as[kBuf][kk], db + 2 * kk);
+    wgmma_tf32(acc, ab[kBuf][kk], db + 2 * kk);
+  }
+  wgmma_commit();
+  fence_regs(acc);
+  wgmma_wait<1>();  // the previous stage's group is done
+  fence_regs(ab[kBuf ^ 1]);
+  fence_regs(as[kBuf ^ 1]);
+  ++it;
 }
 
-// Split s of N: part_w[s][r][c] = sum over its rows k of act[k][r] dz[k][c]
-// and, from the blocks of the first tile row, part_b[s][c] = sum of
-// dz[k][c]. Split s covers rows [s * rows_per_split, + rows_per_split).
-__global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_bwd_wgrad_kernel(const float* __restrict__ act,
-                           const float* __restrict__ dz, float* part_w,
-                           float* part_b, int n, int d, int rows_per_split) {
-  using S = WgradSmem;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + kStages * S::kAStage;
+// Split z of N (rows [z * rows_per_split, + rows_per_split) of act and
+// dz): part_w[z][m][c] = sum over its rows k of act[k][m] dz[k][c] for the
+// block's 128 x 128 tile and, from the blocks of the first tile row,
+// part_b[z][c] = sum of dz[k][c]. Two warpgroups, 64 rows of the tile and
+// half of each dz stage's transpose each; thread 0 also issues the TMA
+// loads, kWRaw stages ahead.
+__global__ void __launch_bounds__(kWThreads, 1)
+fused_mlp_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
+                           const __grid_constant__ CUtensorMap tm_dz,
+                           float* part_w, float* part_b, int n, int d,
+                           int rows_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  WRing ring;
+  ring.base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWRaw; ++s) mbar_init(ring.full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int g = lane / 4, t = lane % 4;
-  const long long c0 = (long long)blockIdx.x * kBN;
-  const long long r0 = (long long)blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kHBN, m0 = blockIdx.y * kHBM;
   const long long k_begin = (long long)blockIdx.z * rows_per_split;
   const long long k_end = k_begin + rows_per_split < n
                               ? k_begin + rows_per_split : (long long)n;
-  float col_sum = 0.f;
-  float acc[kMT][kNT][4];
-  wgrad_mainloop(acc, As, Bs, act, dz, d, r0, c0, k_begin, k_end,
-                 blockIdx.y == 0 ? &col_sum : nullptr);
+  const int stages = (int)((k_end - k_begin + kHBK - 1) / kHBK);
+  if (threadIdx.x == 0)
+    for (int p = 0; p < kWRaw && p < stages; ++p)
+      wgrad_load(ring, &tm_act, &tm_dz, p, k_begin, m0, n0);
+
+  // warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int r_lo = wg * 64 + (warp % 4) * 16 + g;
   float* pw = part_w + (long long)blockIdx.z * d * d;
+  float acc[64];
+  uint32_t ab[2][4][4] = {}, as[2][4][4] = {};
+  float col = 0.f;
+  int it = 0;
+  for (int c0 = 0; c0 < stages; c0 += kPromoteStages) {
+    const int nst = min(kPromoteStages, stages - c0);
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const long long col = c0 + wn * kWN + nt * 8 + 2 * t;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int st = 0; st < nst; st += 2) {
+      wgrad_stage<0>(ring, acc, ab, as, col, it, stages, r_lo, t, &tm_act,
+                     &tm_dz, k_begin, m0, n0);
+      if (st + 1 < nst)
+        wgrad_stage<1>(ring, acc, ab, as, col, it, stages, r_lo, t, &tm_act,
+                       &tm_dz, k_begin, m0, n0);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ab[1]);
+    fence_regs(as[1]);
+    // The partial (+)= this run's sum, in run order. Accumulator fragment
+    // of n8 block j: rows r, r + 8; cols 8j + 2t, 8j + 2t + 1.
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const long long row = r0 + wm * kWM + mt * 16 + g + 8 * h;
-        store2(pw + row * d + col, acc[mt][nt][2 * h],
-               acc[mt][nt][2 * h + 1]);
+        float2* p = reinterpret_cast<float2*>(
+            pw + (long long)(m0 + r_lo + 8 * h) * d + n0 + 8 * j + 2 * t);
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (c0 > 0) {
+          const float2 o = *p;
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        *p = v;
       }
     }
   }
-  if (blockIdx.y == 0 && threadIdx.x < kBN)
-    part_b[(long long)blockIdx.z * d + c0 + threadIdx.x] = col_sum;
+  // db: each column's two halves of rows, the first plus the second
+  if (blockIdx.y == 0) {
+    if (wg == 1) *ring.col(threadIdx.x & 127) = col;
+    named_barrier_sync(kConsumerBarrier, kWThreads);
+    if (wg == 0)
+      part_b[(long long)blockIdx.z * d + n0 + threadIdx.x] =
+          col + *ring.col(threadIdx.x);
+  }
 }
 
 // dw[e] = sum over s, in order, of part_w[s][e]; db likewise from part_b.
@@ -1026,20 +1126,21 @@ int snerf_fused_mlp_bwd_dgrad(const void* dz, const void* w_big,
 int snerf_fused_mlp_bwd_wgrad(const void* act, const void* dz, void* part_w,
                               void* part_b, int n, int d, int rows_per_split,
                               int splits, int device, void* stream) {
-  if (d <= 0 || d % kBN != 0 || n <= 0 || rows_per_split <= 0 ||
-      rows_per_split % kBK != 0 || splits <= 0 || splits > 65535 ||
+  if (d <= 0 || d % kHBN != 0 || n <= 0 || rows_per_split <= 0 ||
+      rows_per_split % kHBK != 0 || splits <= 0 || splits > 65535 ||
       (long long)splits * rows_per_split < n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = set_smem(fused_mlp_bwd_wgrad_kernel, WgradSmem::kBytes);
+  CUtensorMap tm[2] = {};
+  if (err == cudaSuccess) err = encode(&tm[0], act, d, n, 1, 32);
+  if (err == cudaSuccess) err = encode(&tm[1], dz, d, n, 1, 32);
+  if (err == cudaSuccess) err = set_smem(fused_mlp_bwd_wgrad_kernel, kWSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / kBN, d / kBM, splits);
-  fused_mlp_bwd_wgrad_kernel<<<grid, kThreads, WgradSmem::kBytes,
+  const dim3 grid(d / kHBN, d / kHBM, splits);
+  fused_mlp_bwd_wgrad_kernel<<<grid, kWThreads, kWSmem,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(act), static_cast<const float*>(dz),
-      static_cast<float*>(part_w), static_cast<float*>(part_b), n, d,
-      rows_per_split);
+      tm[0], tm[1], static_cast<float*>(part_w), static_cast<float*>(part_b),
+      n, d, rows_per_split);
   return (int)cudaGetLastError();
 }
 

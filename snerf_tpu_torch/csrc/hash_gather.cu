@@ -35,19 +35,38 @@
 // and the pointers' alignment allow. Offsets are 64-bit; the grid-stride
 // loop covers any N.
 //
-// Scatter-add: bound by the L2's atomic throughput rather than by bytes.
-// Each update is one reduction (RED) per vector of the row, resolved in
-// the L2 slice that owns the address; updates to different addresses
-// proceed in parallel, updates to one address serialise there. The
-// hashed levels spread their updates over millions of rows; the dense
-// coarse levels do not (level 0 of a 16^3 grid holds 17^3 = 4,913 rows,
-// and a proposal MLP sends it 32,768 x 64 x 7 x 8 ~ 1.2e8 updates a
-// step), so same-address serialisation is where this kernel can lose.
-// The design is the simple one: the same grid-stride loop and coalesced
-// index and gradient loads as the gather, and one vector atomicAdd of
-// float4 / float2 (sm_90 has them on global memory) or float per row
-// piece. Atomics add in a different order on every run, so dT differs
-// from run to run in its last bits; it is checked against an f64
+// Scatter-add: bound by atomic throughput rather than by bytes. Each
+// update to device memory is one reduction (RED) per vector of the row,
+// resolved in the L2 slice that owns the address; updates to different
+// addresses proceed in parallel, updates to one address serialise there.
+// The hashed levels spread their updates over 2^21 rows; the dense coarse
+// levels do not (level 0 of a 16^3 grid holds 17^3 = 4,913 rows, and a
+// proposal MLP sends it 32,768 x 64 x 7 x 8 ~ 1.2e8 updates a step, ~24k
+// a row), and the step's indices are coherent: a warp's 32 consecutive
+// updates (4 points x 8 corners) touch 8.6 distinct rows at level 0 and
+// 22-32 at level 9. The first design, one vector atomicAdd a row piece,
+// took ~7.7 ms on level 0, and its f32 sums there strayed 1.3e-4 of
+// max|dT| from an f64 sum (the f32 index_add_ as far), since a row's ~24k
+// coherent updates pile up in one address. Two remedies, picked per
+// launch by the host from the level's size (ops/hash_ops.py
+// `scatter_variant`):
+//   * warp aggregation (variant 0): __match_any_sync on the row; the
+//     lanes of a row hand their vectors to its lowest lane through a word
+//     a lane of shared memory, and only that lane adds the sum, so a
+//     level takes one global atomic per distinct row a warp. On the
+//     step's indices it beat the first design on every level but one
+//     hashed level, where it lost 6% (1.09 against 1.03 ms), and tied it
+//     on uniform indices, so that design is gone;
+//   * a shared-memory copy (variant 1): a block zeroes a copy of the
+//     whole level gradient, takes its updates with shared-memory atomics
+//     (no trip to L2, and each block's share of a row summed apart) and
+//     at the end adds its nonzero rows into dT. It pays at one channel up
+//     to 128 KB (the coarse proposal levels); at four channels its
+//     per-channel shared atomics lose to warp aggregation.
+// A warp takes 32 consecutive updates at a time in a grid-stride loop,
+// with coalesced index and gradient loads.
+// Atomics add in a different order on every run, in both variants, so dT
+// differs from run to run in its last bits; it is checked against an f64
 // index_add_ control with a tolerance, never for bit-equality.
 
 #include <cuda_runtime.h>
@@ -110,30 +129,120 @@ gather_rows_kernel(const float* __restrict__ table,
   }
 }
 
-// dT[idx[q]] += g[q] for q < n: C channels per row, added as C / V
-// vectors of V floats.
+// ---- the scatter-add (see the note at the top)
+constexpr int kScatterThreads = 512;
+
+__device__ __forceinline__ void unpack(float* v, float x) { v[0] = x; }
+__device__ __forceinline__ void unpack(float* v, float2 x) {
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void unpack(float* v, float4 x) {
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ float pack(const float* v, float*) { return v[0]; }
+__device__ __forceinline__ float2 pack(const float* v, float2*) {
+  return make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ float4 pack(const float* v, float4*) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// dT_row (global) += v, as C / V vector atomics.
 template <int C, int V>
-__global__ void __launch_bounds__(kThreads)
-scatter_add_rows_kernel(const int32_t* __restrict__ idx,
-                        const float* __restrict__ g, float* __restrict__ dT,
-                        long long n) {
+__device__ __forceinline__ void atomic_row(float* dT_row, const float (&v)[C]) {
   using VT = typename Vec<V>::T;
-  constexpr int kVecs = C / V;
+  VT* d = reinterpret_cast<VT*>(dT_row);
+#pragma unroll
+  for (int i = 0; i < C / V; ++i)
+    atomicAdd(d + i, pack(v + i * V, static_cast<VT*>(nullptr)));
+}
+
+// dT[idx[q]] += g[q] for q < n, C channels a row read as C / V vectors.
+// A warp takes 32 consecutive updates at a time (kUnroll groups of them
+// loaded first). kShared: into a zeroed copy of all num_rows rows in
+// shared memory with shared atomics, whose nonzero rows are then added
+// into dT. Else straight into dT, aggregated: the lanes that hold one row
+// (__match_any_sync) hand their vectors to the lowest of them through a
+// word a lane of shared memory, and only that lane adds the sum.
+template <int C, int V, bool kShared>
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_add_rows_kernel(const int32_t* __restrict__ idx,
+                            const float* __restrict__ g,
+                            float* __restrict__ dT, long long n,
+                            int num_rows) {
+  using VT = typename Vec<V>::T;
+  extern __shared__ float s_rows[];  // kShared: [num_rows, C]
+  __shared__ float stage[kShared ? 1 : kScatterThreads];
+  const int lane = threadIdx.x & 31;
+  float* my_stage = stage + (kShared ? 0 : (threadIdx.x & ~31));
+  if (kShared) {
+    for (int i = threadIdx.x; i < num_rows * C; i += blockDim.x)
+      s_rows[i] = 0.f;
+    __syncthreads();
+  }
   const VT* src = reinterpret_cast<const VT*>(g);
-  VT* dst = reinterpret_cast<VT*>(dT);
-  const long long stride = (long long)gridDim.x * kThreads * kUnroll;
-  for (long long base = (long long)blockIdx.x * kThreads * kUnroll +
-                        threadIdx.x;
-       base < n; base += stride) {
+  const long long step = (long long)gridDim.x * blockDim.x * kUnroll;
+  for (long long base = ((long long)blockIdx.x * blockDim.x +
+                         (threadIdx.x & ~31)) * kUnroll;
+       base < n; base += step) {
+    int row[kUnroll];
+    float v[kUnroll][C];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
-      const long long q = base + (long long)j * kThreads;
+      const long long q = base + 32 * j + lane;
+      row[j] = -1;
       if (q < n) {
-        const long long row = (long long)__ldg(idx + q);
+        row[j] = __ldg(idx + q);
 #pragma unroll
-        for (int v = 0; v < kVecs; ++v)
-          atomicAdd(dst + row * kVecs + v, __ldg(src + q * kVecs + v));
+        for (int i = 0; i < C / V; ++i)
+          unpack(v[j] + i * V, __ldg(src + q * (C / V) + i));
       }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      bool lead = row[j] >= 0;
+      if (!kShared) {
+        const unsigned peers = __match_any_sync(0xffffffffu, row[j]);
+        lead = lead && (__ffs(peers) - 1) == lane;
+        if (__any_sync(0xffffffffu, lead && peers != (1u << lane))) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            my_stage[lane] = v[j][c];
+            __syncwarp();
+            if (lead) {
+              for (unsigned rest = peers & (peers - 1); rest;
+                   rest &= rest - 1)
+                v[j][c] += my_stage[__ffs(rest) - 1];
+            }
+            __syncwarp();
+          }
+        }
+      }
+      if (!lead) continue;
+      if (kShared) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          atomicAdd(s_rows + (long long)row[j] * C + c, v[j][c]);
+      } else {
+        atomic_row<C, V>(dT + (long long)row[j] * C, v[j]);
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int r = threadIdx.x; r < num_rows; r += blockDim.x) {
+      float v[C];
+      bool nonzero = false;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        v[c] = s_rows[r * C + c];
+        nonzero |= v[c] != 0.f;
+      }
+      if (nonzero) atomic_row<C, V>(dT + (long long)r * C, v);
     }
   }
 }
@@ -154,20 +263,47 @@ int launch(const float* table, const int32_t* idx, float* out, long long n,
   return (int)cudaGetLastError();
 }
 
-template <int C, int V>
-int launch_scatter(const int32_t* idx, const float* g, float* dT,
-                   long long n, int device, cudaStream_t stream) {
+template <int C, int V, bool kShared>
+int launch_scatter(const int32_t* idx, const float* g, float* dT, long long n,
+               int num_rows, int device, cudaStream_t stream) {
+  auto kernel = scatter_add_rows_kernel<C, V, kShared>;
   int sms = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const size_t smem = kShared ? (size_t)num_rows * C * sizeof(float) : 0;
+  if (err == cudaSuccess && kShared)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kScatterThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long per_block = (long long)kThreads * kUnroll;
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long per_block = (long long)kScatterThreads * kUnroll;
   long long blocks = (n + per_block - 1) / per_block;
-  const long long cap = (long long)sms * kBlocksPerSM;
+  const long long cap = (long long)sms * per_sm;
   if (blocks > cap) blocks = cap;
-  scatter_add_rows_kernel<C, V>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(idx, g, dT, n);
+  kernel<<<(unsigned)blocks, kScatterThreads, smem, stream>>>(idx, g, dT, n,
+                                                          num_rows);
   return (int)cudaGetLastError();
+}
+
+// Variant 0: warp aggregation, global atomics; 1: the shared-memory
+// copy.
+template <int C, int V>
+int launch_variant(const int32_t* idx, const float* g, float* dT,
+                   long long n, int num_rows, int variant, int device,
+                   cudaStream_t stream) {
+  switch (variant) {
+    case 0:
+      return launch_scatter<C, V, false>(idx, g, dT, n, num_rows, device,
+                                         stream);
+    case 1:
+      return launch_scatter<C, V, true>(idx, g, dT, n, num_rows, device,
+                                        stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The widest vector (4, 2 or 1 floats) that divides C and keeps every
@@ -187,21 +323,25 @@ int dispatch(const float* table, const int32_t* idx, float* out, long long n,
   return launch<C, 1>(table, idx, out, n, device, stream);
 }
 
-// The widest vector atomic (4, 2 or 1 floats) that divides C and keeps
-// every row of `g` and `dT` aligned to it.
+// The widest vector (4, 2 or 1 floats) that divides C and keeps every row
+// of `g` and `dT` aligned to it.
 template <int C>
 int dispatch_scatter(const int32_t* idx, const float* g, float* dT,
-                     long long n, int device, cudaStream_t stream) {
+                     long long n, int num_rows, int variant, int device,
+                     cudaStream_t stream) {
   const uintptr_t align = (uintptr_t)g | (uintptr_t)dT;
   if constexpr (C % 4 == 0) {
     if (align % 16 == 0)
-      return launch_scatter<C, 4>(idx, g, dT, n, device, stream);
+      return launch_variant<C, 4>(idx, g, dT, n, num_rows, variant, device,
+                                  stream);
   }
   if constexpr (C % 2 == 0) {
     if (align % 8 == 0)
-      return launch_scatter<C, 2>(idx, g, dT, n, device, stream);
+      return launch_variant<C, 2>(idx, g, dT, n, num_rows, variant, device,
+                                  stream);
   }
-  return launch_scatter<C, 1>(idx, g, dT, n, device, stream);
+  return launch_variant<C, 1>(idx, g, dT, n, num_rows, variant, device,
+                              stream);
 }
 
 }  // namespace
@@ -236,26 +376,31 @@ int snerf_gather_rows(const void* table, const void* idx, void* out,
 
 // idx [n] int32 with every value in [0, rows), g [n, c] f32, dT [rows, c]
 // f32 zeroed by the caller; contiguous, on `device`, 1 <= c <= 8. Adds
-// g[q] into dT[idx[q]] with atomics. Launches on `stream` without
-// synchronising; returns the cudaError_t of the launch (0 = launched).
+// g[q] into dT[idx[q]] with atomics, by `variant` (0: warp-aggregated; 1:
+// through a shared-memory copy of dT, which must fit a block).
+// Launches on `stream` without synchronising; returns the cudaError_t of
+// the launch (0 = launched).
 int snerf_scatter_add_rows(const void* idx, const void* g, void* dT,
-                           long long n, int c, int device, void* stream) {
+                           long long n, int c, int rows, int variant,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
+  if (rows <= 0 || variant < 0 || variant > 1)
+    return (int)cudaErrorInvalidValue;
   const int32_t* i = static_cast<const int32_t*>(idx);
   const float* s = static_cast<const float*>(g);
   float* d = static_cast<float*>(dT);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 1: return dispatch_scatter<1>(i, s, d, n, device, st);
-    case 2: return dispatch_scatter<2>(i, s, d, n, device, st);
-    case 3: return dispatch_scatter<3>(i, s, d, n, device, st);
-    case 4: return dispatch_scatter<4>(i, s, d, n, device, st);
-    case 5: return dispatch_scatter<5>(i, s, d, n, device, st);
-    case 6: return dispatch_scatter<6>(i, s, d, n, device, st);
-    case 7: return dispatch_scatter<7>(i, s, d, n, device, st);
-    case 8: return dispatch_scatter<8>(i, s, d, n, device, st);
+    case 1: return dispatch_scatter<1>(i, s, d, n, rows, variant, device, st);
+    case 2: return dispatch_scatter<2>(i, s, d, n, rows, variant, device, st);
+    case 3: return dispatch_scatter<3>(i, s, d, n, rows, variant, device, st);
+    case 4: return dispatch_scatter<4>(i, s, d, n, rows, variant, device, st);
+    case 5: return dispatch_scatter<5>(i, s, d, n, rows, variant, device, st);
+    case 6: return dispatch_scatter<6>(i, s, d, n, rows, variant, device, st);
+    case 7: return dispatch_scatter<7>(i, s, d, n, rows, variant, device, st);
+    case 8: return dispatch_scatter<8>(i, s, d, n, rows, variant, device, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

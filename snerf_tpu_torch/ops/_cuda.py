@@ -38,20 +38,23 @@ def build(name: str) -> tuple[Path, str]:
   """Compile `csrc/<name>.cu` if this source has not been built yet.
 
   Returns (path of the shared library, the compiler's output: ptxas
-  registers, shared memory and spills; empty when it was built before).
+  registers, shared memory and spills, kept beside the library as
+  `<library>.log` and read back when it was built before).
   """
   src_path = CSRC / f"{name}.cu"
   src = src_path.read_bytes()
   digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
   so = BUILD_DIR / f"{name}_{digest[:16]}.so"
+  log = so.with_name(f"{so.name}.log")
   if so.exists():
-    return so, ""
+    return so, log.read_text() if log.exists() else ""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
   proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)],
                         capture_output=True, text=True)
   if proc.returncode != 0:
     raise RuntimeError(f"nvcc failed building {src_path}:\n{proc.stderr}")
+  log.write_text(proc.stdout + proc.stderr)
   os.replace(tmp, so)
   return so, proc.stdout + proc.stderr
 

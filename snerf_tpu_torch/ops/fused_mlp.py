@@ -10,8 +10,9 @@ weights are split once a call into TF32 big and small parts
 goes through `FusedMLPFunction`: the forward keeps every layer's output
 and the split, and the backward runs, per layer, the dgrad kernel (dz
 W^T with the ReLU mask of the layer below, on the kept split) and the
-wgrad kernel (act^T dz and the bias sums, N split across blocks) with
-its fixed-order reduce. The kernels are built and loaded by `ops/_cuda.py`.
+wgrad kernel (act^T dz and the bias sums on wgmma, dz transposed in
+shared memory, N split across blocks) with its fixed-order reduce. The
+kernels are built and loaded by `ops/_cuda.py`.
 """
 
 from __future__ import annotations
@@ -25,14 +26,13 @@ from snerf_tpu_torch.ops import _cuda
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_ROWS = 2 ** 31 - 64  # the kernels index rows with int
 _BK = 32                  # wgrad's k-depth: a split is a multiple of it
-_MIN_SPLIT_ROWS = 256
-# The tensor cores' f32 accumulator truncates, so a split's error grows
-# with its rows: on an H100 a 15,776-row split put dW 1.2e-4 of max|dW|
-# off f64, a 2,048-row split 1.7e-5 (the 1xTF32 kernel: 3.5e-4) at no
-# measured cost in time; the partials then take 4 MiB per 2,048 rows at
-# D = 1024.
-_MAX_SPLIT_ROWS = 2048
-_WAVES = 8                # wgrad blocks to aim for, in waves of 2 per SM
+# The tensor cores' f32 accumulator truncates, so a run's error grows with
+# its rows: on an H100 a 15,776-row run put dW 1.2e-4 of max|dW| off f64,
+# a 2,048-row run 1.7e-5 (the 1xTF32 kernel: 3.5e-4). The wgrad kernel
+# adds its accumulator into the block's f32 partial every 2,048 rows
+# (kPromoteStages in csrc/fused_mlp.cu), so a split may be longer.
+_MIN_SPLIT_ROWS = 2048
+_WAVES = 16               # wgrad blocks to aim for, in waves of 1 per SM
 
 
 def _bind(lib):
@@ -270,11 +270,12 @@ def fused_mlp_bwd_dgrad(dz, w_big, w_small, mask, out):
 
 def wgrad_splits(n: int, d: int, sm_count: int):
   """(rows_per_split, splits) of wgrad's split of N: enough blocks for
-  _WAVES waves of 2 blocks per SM over the (D/128)^2 output tiles and
-  splits of at most _MAX_SPLIT_ROWS rows (past 65,535 splits, longer
-  ones), each at least _MIN_SPLIT_ROWS rows and a multiple of _BK."""
+  _WAVES waves of one block per SM over the (D/128)^2 output tiles (16 x
+  132 = 2,112 blocks is 33 splits of the 64 tiles at D = 1024, no partial
+  wave), each split at least _MIN_SPLIT_ROWS rows unless N is shorter, a
+  multiple of _BK, and at most 65,535 splits."""
   tiles = (d // 128) ** 2
-  splits = max(-(-_WAVES * 2 * sm_count // tiles), -(-n // _MAX_SPLIT_ROWS))
+  splits = -(-_WAVES * sm_count // tiles)
   splits = max(1, min(splits, -(-n // _MIN_SPLIT_ROWS), 65535))
   rows = -(-n // splits)
   rows = -(-rows // _BK) * _BK
@@ -283,7 +284,8 @@ def wgrad_splits(n: int, d: int, sm_count: int):
 
 def fused_mlp_bwd_wgrad(act, dz, part_w, part_b, rows_per_split):
   """The partials of act.T @ dz and dz.sum(0) over splits of N rows:
-  act, dz [N, D] float32; part_w [S, D, D]; part_b [S, D]."""
+  act, dz [N, D] float32; part_w [S, D, D]; part_b [S, D]. One launch of
+  the TMA-fed wgmma kernel, a block per 128 x 128 tile and split."""
   _check_cuda("fused_mlp_bwd_wgrad", act, dz, part_w, part_b)
   n, d = act.shape
   lib = _lib()

@@ -9,7 +9,9 @@ snerf_tpu/ops/pallas/hash_gather_dense.py with its custom VJP).
 level, dense or hashed: the TPU kernel's table-size limit does not exist
 there. Under autograd (a table that requires grad) the gather goes
 through `HashGatherFunction`, whose backward is the scatter-add
-`scatter_add_rows`: the kernel in the same source for CUDA tensors,
+`scatter_add_rows`: the kernel in the same source for CUDA tensors, in
+the variant `scatter_variant` picks from the level's size (a shared-memory
+copy for the coarse one-channel levels, warp aggregation for the rest),
 `scatter_add_rows_plain` (`index_add_`) for CPU tensors. Only the int32
 indices are saved for the backward, never the gathered rows. The kernels
 are built and loaded by `ops/_cuda.py`.
@@ -26,11 +28,23 @@ from snerf_tpu_torch.ops import _cuda
 MAX_CHANNELS = 8
 
 
+# The scatter-add's variants, as `variant` of snerf_scatter_add_rows.
+_SCATTER_VARIANT_CODES = {"warp": 0, "shared": 1}
+# The rule, from the zip train step's own indices and gradients on an
+# H100 (PERF.md, §6): a shared copy pays only at C = 1 up to 128 KB (the
+# coarse proposal levels, 4,920 to 24,392 rows); at C = 4 its per-channel
+# shared atomics lose to warp aggregation.
+SCATTER_SHARED_BYTES = 128 * 1024
+
+
 def _bind(lib):
-  for fn in (lib.snerf_gather_rows, lib.snerf_scatter_add_rows):
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+  lib.snerf_gather_rows.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+  lib.snerf_gather_rows.restype = ctypes.c_int
+  lib.snerf_scatter_add_rows.argtypes = (
+      [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+      + [ctypes.c_void_p])
+  lib.snerf_scatter_add_rows.restype = ctypes.c_int
 
 
 def _check_shapes(table, idx):
@@ -106,13 +120,24 @@ def scatter_add_rows_plain(idx, g, num_rows: int):
   return g.new_zeros(num_rows, g.shape[1]).index_add_(0, idx, g)
 
 
+def scatter_variant(num_rows: int, c: int) -> str:
+  """The scatter-add kernel's variant for a level gradient [num_rows, c]
+  float32: "shared" (a zeroed copy per block takes the updates with
+  shared-memory atomics and adds its nonzero rows once) at c = 1 up to
+  SCATTER_SHARED_BYTES, else "warp" (the lanes that hold one row sum it
+  before one global atomic)."""
+  return ("shared" if c == 1 and num_rows * 4 <= SCATTER_SHARED_BYTES
+          else "warp")
+
+
 def scatter_add_rows(idx, g, num_rows: int):
   """dT [num_rows, C] float32 with dT[idx[q]] += g[q]; idx int32 [Q] with
   every value in [0, num_rows), g float32 [Q, C].
 
   CPU tensors run `scatter_add_rows_plain`. CUDA tensors launch the
-  scatter-add kernel into a zeroed dT (contiguous, C <= 8) or raise;
-  `scatter_add_rows.launches` counts the launches. The kernel adds with
+  scatter-add kernel into a zeroed dT (contiguous, C <= 8) or raise, in
+  the variant `scatter_variant(num_rows, C)` picks;
+  `scatter_add_rows.launches` counts the launches. Both variants add with
   atomics, so the order of the additions, and with it the last bits of
   dT, changes from run to run.
   """
@@ -126,12 +151,14 @@ def scatter_add_rows(idx, g, num_rows: int):
   n = idx.numel()
   if n == 0:
     return out
+  variant = scatter_variant(num_rows, c)
   lib = _cuda.load("hash_gather", _bind)
   err = lib.snerf_scatter_add_rows(
-      idx.data_ptr(), g.data_ptr(), out.data_ptr(), n, c, g.device.index,
+      idx.data_ptr(), g.data_ptr(), out.data_ptr(), n, c, num_rows,
+      _SCATTER_VARIANT_CODES[variant], g.device.index,
       torch.cuda.current_stream(g.device).cuda_stream)
-  _cuda.check_launch(lib, err, f"scatter_add_rows at T={num_rows} C={c} "
-                     f"N={n}")
+  _cuda.check_launch(lib, err, f"scatter_add_rows ({variant}) at "
+                     f"T={num_rows} C={c} N={n}")
   scatter_add_rows.launches += 1
   return out
 

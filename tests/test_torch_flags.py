@@ -64,8 +64,52 @@ def test_unknown_key_raises_in_both():
 
 @pytest.mark.parametrize("encoder", ["hash", "ipe"])
 def test_zip_train_config_matches_jax_adapter(encoder):
+  # JAX trains bf16 zip MLPs by default; the port trains f32 until B.2
   argv = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf"),
-          "--zip_encoder", encoder]
+          "--zip_encoder", encoder, "--zip_compute_dtype", "float32"]
   got = dataclasses.asdict(tconfig.zip_train_config(flags.load_config(argv)))
   want = dataclasses.asdict(jconfig.load_config(argv).zip_train_config())
   assert got == want
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "bf16"])
+def test_zip_train_config_raises_on_bf16(dtype):
+  """The flags that make JAX train bf16 zip MLPs (the default among them)
+  raise in the port, naming B.2, instead of training f32 silently."""
+  argv = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf")]
+  if dtype is not None:
+    argv += ["--zip_compute_dtype", dtype]
+  cfg = flags.load_config(argv)
+  assert cfg.zip_compute_dtype in ("bfloat16", "bf16")
+  with pytest.raises(NotImplementedError, match="B.2"):
+    tconfig.zip_train_config(cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "f32"])
+def test_zip_train_config_float32_builds_as_before(dtype):
+  """A float32 value builds the same ZipTrainConfig as the flags did
+  before the dtype rule, field for field (the fields do not read the
+  dtype); JAX's adapter picks float32 for any value but bf16 ones."""
+  base = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf")]
+  cfg = flags.load_config(base + ["--zip_compute_dtype", dtype])
+  got = dataclasses.asdict(tconfig.zip_train_config(cfg))
+  want = dataclasses.asdict(tconfig.zip_train_config(dataclasses.replace(
+      flags.load_config(base), zip_compute_dtype="float32")))
+  assert got == want
+  assert got["batch_size"] == 32768 and got["lr_init"] == 0.01
+  jcfg = jconfig.load_config(base + ["--zip_compute_dtype", dtype])
+  assert jcfg.zip_model_config().compute_dtype.__name__ == "float32"
+
+
+def test_zip_model_config_stays_f32_for_bf16_flags():
+  """The eval adapter keeps float32 under the bf16 default, as render.py
+  and eval.py force it, and matches the JAX adapter's fields."""
+  cfg = flags.load_config(["--config",
+                           os.path.join(REPO, "configs", "waymo_zipnerf")])
+  assert cfg.zip_compute_dtype == "bfloat16"
+  got = dataclasses.asdict(tconfig.zip_model_config(cfg))
+  want = dataclasses.asdict(jconfig.load_config(
+      ["--config", os.path.join(REPO, "configs", "waymo_zipnerf")])
+      .zip_model_config())
+  assert all(want[k] == v for k, v in got.items())
+  assert "compute_dtype" not in got

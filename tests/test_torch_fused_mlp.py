@@ -127,15 +127,16 @@ def test_bf16_under_autograd_raises():
 
 
 @pytest.mark.parametrize("n,d,want", [
-    (4096 * 127, 1024, (2048, 254)),      # fine trunk: 2,048-row splits
-    (4096 * 127 + 5, 1024, (2048, 255)),  # ragged: the last split short
-    (4096 * 128, 256, (1024, 512)),       # proposal: 8 waves of blocks
-    (777, 256, (224, 4)),                 # small: splits of >= 256 rows
-    (2 ** 30, 1024, (16416, 65409)),      # past 65,535 splits: longer
+    (4096 * 127, 1024, (15776, 33)),      # fine trunk: 33 x 64 = 16 waves
+    (4096 * 127 + 5, 1024, (15776, 33)),  # ragged: the last split short
+    (4096 * 128, 256, (2048, 256)),       # proposal: splits of >= 2,048
+    (777, 256, (800, 1)),                 # small: one split
+    (2 ** 30, 1024, (32537632, 33)),      # long N: longer splits
 ])
 def test_wgrad_splits(n, d, want):
   """wgrad's split of N on a 132-SM card: splits cover N, each a multiple
-  of 32 rows and at most 2,048 unless that takes over 65,535 splits."""
+  of 32 rows and at least 2,048 unless N is shorter, about 16 waves of
+  one block per SM."""
   rows, splits = wgrad_splits(n, d, 132)
   assert (rows, splits) == want
   assert rows % 32 == 0 and splits * rows >= n > (splits - 1) * rows

@@ -89,7 +89,9 @@ zflags = load_config(["--config", "configs/waymo_zipnerf",
                       "--zip_prop_grid_resolutions", "(64, 128)",
                       "--zip_nerf_grid_resolution", "256",
                       "--zip_bottleneck_width", "32", "--zip_batch_size", "32",
-                      "--zip_patch_size", "2", "--zip_lr_delay", "0"])
+                      "--zip_patch_size", "2", "--zip_lr_delay", "0",
+                      # JAX trains bf16 here; the port f32 until B.2
+                      "--zip_compute_dtype", "float32"])
 zscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
 zscene.semantics = (zscene.depths > zscene.depths.mean()).astype("int32")
 zscene.skymask = zscene.depths > 1e9

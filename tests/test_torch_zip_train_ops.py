@@ -189,6 +189,51 @@ def test_scatter_add_rows_checks():
                                           device="meta"), g.to("meta"), 9)
 
 
+# The zip step's 30 hash levels (make_grid_spec(10, C, 16, max_res, 21)
+# of prop_mlp_0, prop_mlp_1 and the nerf MLP) and the scatter variant the
+# host rule gives each: a shared-memory copy for the one-channel levels of
+# at most 128 KB, warp aggregation for the rest.
+_SCATTER_LEVELS = {
+    "prop_mlp_0": (1, 512, ["shared"] * 2 + ["warp"] * 8),
+    "prop_mlp_1": (1, 2048, ["shared"] * 2 + ["warp"] * 8),
+    "nerf_mlp": (4, 8192, ["warp"] * 10),
+}
+
+
+@pytest.mark.parametrize("mlp,lvl", [(m, l) for m in _SCATTER_LEVELS
+                                     for l in range(10)])
+def test_scatter_variant_on_the_zip_steps_levels(mlp, lvl):
+  from snerf_tpu_torch.models.hashgrid import make_grid_spec
+  c, res, want = _SCATTER_LEVELS[mlp]
+  rows = make_grid_spec(10, c, 16, res, 21).sizes[lvl]
+  assert hash_ops.scatter_variant(rows, c) == want[lvl]
+
+
+@pytest.mark.parametrize("rows,c,want", [
+    (32768, 1, "shared"), (32769, 1, "warp"),        # 128 KB at C = 1
+    (4920, 4, "warp"), (1, 2, "warp"),               # C > 1: never shared
+    (8192, 2, "warp"), (2 ** 21, 1, "warp"),
+    (1, 1, "shared"), (4920, 1, "shared"),
+])
+def test_scatter_variant_budget_edges(rows, c, want):
+  assert hash_ops.scatter_variant(rows, c) == want
+
+
+@pytest.mark.parametrize("rows,c", [(4920, 1), (35944, 4)])
+def test_scatter_add_rows_cpu_at_each_variants_size(rows, c):
+  """At a level size of each variant, CPU tensors run index_add_ and
+  count no launch."""
+  rng = np.random.RandomState(rows + c)
+  idx = torch.from_numpy(rng.randint(0, rows, 4000).astype(np.int32))
+  idx[:100] = 7                                   # a row many updates hit
+  g = torch.from_numpy(rng.randn(4000, c).astype(np.float32))
+  before = hash_ops.scatter_add_rows.launches
+  got = hash_ops.scatter_add_rows(idx, g, rows)
+  want = torch.zeros(rows, c).index_add_(0, idx.long(), g)
+  assert torch.equal(got, want)
+  assert hash_ops.scatter_add_rows.launches == before
+
+
 @pytest.mark.parametrize("c", [1, 4])
 def test_hash_gather_grad_matches_pallas_vjp(c):
   """The table gradient of HashGatherFunction (CPU: its kernels' plain
