@@ -7,22 +7,24 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. float32 numerics: TF32 off for matmuls and cuDNN;
   3. build: every kernel in csrc/, one nvcc process each, all at once;
-     the ptxas lines (registers, spills: K1's three wgmma kernels must
-     spill nothing); the SASS of K1's f32 forward, dgrad and wgrad kernels
-     (cuobjdump -sass) must hold wgmma (HGMMA) and TMA loads (UTMALDG);
+     the ptxas lines (registers, spills: K1's three wgmma kernels and the
+     fused encode's kernels must spill nothing); the SASS of K1's f32
+     forward, dgrad and wgrad kernels (cuobjdump -sass) must hold wgmma
+     (HGMMA) and TMA loads (UTMALDG);
   4. kernel K1 against plain: tf32_split bit-equal to tf32_split_plain at
      the fine and proposal trunks' weight shapes and on special values
      (signed zeros, inf, NaN, subnormals, ties); the fused-MLP kernel
      against fused_mlp_plain on the card at the mip render path's shapes,
      a ragged N, bf16, both last_relu settings; max error beside its
      tolerance, CUDA-event times, TFLOP/s and the share of the bound;
-  4b. kernel K2 against plain: the hash-grid row gather against
+  4b. kernel K2's row gather (on no path since the fused encode) against
      table[idx] at the zip paths' shapes (a hashed level's own 2^21 rows
      of the nerf and prop_mlp_1 tables at the render chunk of 8192 rays
      and the train batch of 32768), a stress case over the whole nerf
      table, a ragged N, C in {2, 8}, the TPU kernel's shape, the edge rows
      0 and T-1; exact equality, CUDA-event times, GB/s and the bound;
-  4c. K2's scatter-add backward against scatter_add_rows_plain
+  4c. K2's scatter-add backward (on no path since the fused encode)
+     against scatter_add_rows_plain
      (index_add_) and an f64 index_add_ control, at the zip train step's
      shapes (dense levels 0 and 3 and hashed level 9 of prop_mlp_0, C = 1,
      dense level 0 and hashed level 9 of the nerf MLP, C = 4, each into
@@ -30,15 +32,30 @@ Phases, each fatal on failure:
      sub-range of the rows and the TPU kernel's 4,992-row table, each in
      the variant the host rule picks (printed); the rule's variant for
      each of the step's 30 levels; then the zip step's own indices and
-     gradients, captured during one step from the seeded init
-     (capture_zip_levels), with the distinct rows a warp's 32 updates
-     touch per level and the cases CAPTURED_LEVELS names; error /
-     max|control| within SCATTER_TOL, no update outside the drawn rows,
-     CUDA-event times, GB/s and per-level ms;
+     gradients, derived from each encoder's positions and output gradient
+     captured during one step from the seeded init (capture_zip_levels),
+     with the distinct rows a warp's 32 updates touch per level and the
+     cases CAPTURED_LEVELS names; error / max|control| within SCATTER_TOL,
+     no update outside the drawn rows, CUDA-event times, GB/s and
+     per-level ms;
+  4e. the fused multi-level hash encode (K2 redesigned) against its plain
+     versions at the zip paths' shapes (the nerf MLP at the train batch,
+     7.3 M points, C = 4; a proposal MLP at 14.7 M points, C = 1; both at
+     the render chunk; a ragged N; out-of-range points; C = 3 and 8) and
+     at each encoder's positions and output gradient captured in one zip
+     step: the forward within ENCODE_FWD_TOL of max|plain| (bit-equal
+     expected), the table gradient per level within SCATTER_TOL of an f64
+     control, dx within ENCODE_DX_TOL of max|f64 control|, each beside a
+     fault reading (one corner, one update, one level left out) that must
+     exceed its limit; CUDA-event times in turns, GB/s, the bound, and
+     the forward's time with a level-major output beside it;
   4d. the gather probes: P1 (take_along_axis along either axis) against
      torch.take_along_dim and P2 (the shared-memory gather-select) against
-     Tensor.gather, bit-equal, then the probe module's survey of the
-     gather primitives (snerf_tpu_torch/probes/gather.py);
+     Tensor.gather, bit-equal; P2 at [8, 4,992] x [8, 2^17] against
+     Tensor.gather by CUDA events (back to back, and over a CUDA-graph
+     replay, which must not exceed gather's) and by the profiler's device
+     time (which must not exceed gather's); then the probe module's
+     survey of the gather primitives (snerf_tpu_torch/probes/gather.py);
   5. mip slice: the shipped nuScenes_depth_6cams model at full width with
      a seeded init renders 2 held-out views of the synthetic scene through
      make_eval_render_fn / render_image (chunk 4096); the outputs must be
@@ -49,11 +66,11 @@ Phases, each fatal on failure:
   6. zip slice: the shipped waymo_zipnerf model (hash encoder) at full
      width with a seeded init renders the same 2 views through
      make_zip_eval_render_fn / render_image (chunk 8192); the outputs must
-     be finite with acc in [0, 1] and semantic rows summing to acc, K2
-     must have been launched 30 times a chunk, one chunk must agree with a
-     model whose gathers run gather_rows_plain and differ from a render
-     with the tables zeroed; one chunk is broken down under
-     torch.profiler;
+     be finite with acc in [0, 1] and semantic rows summing to acc, the
+     fused encode must have been launched 3 times a chunk and K2's gather
+     never, one chunk must agree with a model whose encoders run the plain
+     encode and differ from a render with the tables zeroed; one chunk is
+     broken down under torch.profiler;
   7a. K1's backward against plain: the dgrad, wgrad and reduce kernels
      against fused_mlp_bwd_plain on the same saved layers at the train
      step's shapes (fine trunk_1..4 and trunk_6..7 at 520,192 rows,
@@ -77,18 +94,19 @@ Phases, each fatal on failure:
      width (zip_lr_delay 0, zip_compute_dtype float32: JAX trains bf16
      zip MLPs, the port f32 until B.2) on the same scene with semantic
      labels from depth quantiles and an object mask on one corner, batch
-     32768: 2 warm-up and 12 timed steps (s/step, rays/s, peak memory, 30 K2
-     gathers and 30 scatter-adds a step), a finite and falling loss, a
-     torch.profiler breakdown of one step with each scatter-add launch
-     and their sum,
-     and one step against the same weights whose gathers run the plain
-     pair (table[idx] forward, its accumulating scatter-add backward):
-     every grad, each hash level's apart, within ZIP_STEP_GRAD_TOL, which
-     must sit below the weakest fault reading of the run.
+     32768: 2 warm-up and 12 timed steps (s/step, rays/s, peak memory, 3
+     fused encode forwards and 3 backwards a step, no K2 gather or
+     scatter-add), a finite and falling loss, a torch.profiler breakdown
+     of one step, and one step against the same weights whose encoders run
+     the plain encode (table[idx] forward, PyTorch's accumulating
+     scatter-add backward): every grad, each hash level's apart, within
+     ZIP_STEP_GRAD_TOL, which must sit below the weakest fault reading of
+     the run.
 Each phase prints its seconds. The kernels line lists every kernel with
 its path's launch counts (the mip train step for fused_mlp, tf32_split
-and the three backward kernels, the zip train step for hash_gather and
-hash_scatter_add, the survey for the probes), its time at the path's
+and the three backward kernels, the zip train step for the fused encode,
+the survey for the probes and for K2's gather and scatter-add, which no
+path runs since the fused encode), its time at the path's
 shapes beside its plain version's, its bound (the larger of its bytes
 over HBM_RATE and its operations over their peak rate) and the time of
 one PyTorch call computing the same function, where there is one.
@@ -164,9 +182,11 @@ STEP_METRIC_TOL = 1e-3
 STEP_GRAD_TOL = 1e-2
 STEP_POSE_TOL = 1e-1
 RENDER_TOL = 1e-3          # rgb/acc absolute, distance relative
-# The zip render with kernel K2 against plain gathers: a gather copies
-# bits, so the two agree exactly unless an op downstream is
-# nondeterministic; expected 0.
+# The zip render with the fused encode against the plain encode: the
+# kernel computes the cells, weights and blend with the plain version's
+# roundings (no FMA contraction) and adds the corners in its order, so
+# the two agree exactly unless an op downstream is nondeterministic;
+# expected 0.
 ZIP_RENDER_TOL = 1e-6
 # Hash tables drawn in +-1 instead of the +-1e-4 init: the features then
 # sit at O(1), as a trained table's do, so density and colour depend on
@@ -191,14 +211,24 @@ BF16_MMA_RATE = 989e12
 # of max|control| and a wrong row by O(1): 1e-4 catches either, while f32
 # sums of 24k terms in any order stay ~1e-6 off.
 SCATTER_TOL = 1e-4
-# The zip train slice: warm-up and timed steps; K2 gathers and scatter-
-# adds a step, one per hash level of each MLP (10 levels x 3 MLPs).
+# The fused encode against its plain versions (phase 4e). Forward: error
+# / max|plain|; the kernel repeats the plain version's roundings and
+# order, so 0 is expected, and a corner left out of the blend reads
+# far more (read in the same run). dx (pose refinement): error / max|f64
+# control|; f32 sums of 8 corners x 10 levels, added across levels by
+# atomics in any order; a level left out reads far more (in the same
+# run).
+ENCODE_FWD_TOL = 2e-6
+ENCODE_DX_TOL = 1e-5
+# The zip slices: fused encode launches a render chunk or a train step,
+# forward and backward, one per MLP (the 10 hash levels of each in one).
+ENCODE_PER_MLP = 3
 ZIP_TRAIN_WARMUP, ZIP_TRAIN_STEPS = 2, 12
-K2_PER_STEP = 30
-# One zip step against the same weights whose gathers run the plain pair
-# (table[idx] and PyTorch's backward of it, index_put_ with accumulate) on
-# the same draws: the forward is bit-identical (a gather copies bits), so
-# the loss should agree exactly. The table grads differ by the order of
+# One zip step against the same weights whose encoders run the plain
+# encode (table[idx] and PyTorch's backward of it, index_put_ with
+# accumulate) on the same draws: the forward is bit-identical (the fused
+# kernel repeats the plain version's roundings), so the loss should agree
+# exactly. The table grads differ by the order of
 # the f32 additions into each row, most on the dense levels, where a row
 # sums ~2.4e4 updates of a step. Relative L2 per tensor and, for a table,
 # per level, after the same clipping. On an H100 the sound kernels read at
@@ -851,14 +881,44 @@ def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
               bound_by=b_by)
 
 
-def profile_chunk(torch, render_fn, rays):
+def _label_encoders(model, label):
+  """Wrap every hash encoder's encode_fn of `model` in a profiler label;
+  returns the list of (encoder, original encode_fn) to restore."""
+  from torch.profiler import record_function
+  from snerf_tpu_torch.models.hashgrid import HashEncoding
+
+  saved = []
+  for m in model.modules():
+    if isinstance(m, HashEncoding):
+      def wrapped(*args, fn=m.encode_fn, **kwargs):
+        with record_function(label):
+          return fn(*args, **kwargs)
+      saved.append((m, m.encode_fn))
+      m.encode_fn = wrapped
+  return saved
+
+
+def _hash_kind(name):
+  """The profile bucket of a hash-encoder kernel, by its name."""
+  for key, label in (("hash_encode_fwd_kernel", "fused encode forward"),
+                     ("hash_encode_bwd_kernel", "fused encode backward"),
+                     ("gather_rows_kernel", "K2 gather"),
+                     ("scatter_add_rows", "scatter-add")):
+    if key in name:
+      return label
+  if "gemm" in name.lower() or "gemv" in name.lower():
+    return "matmul (cuBLAS)"
+  return None
+
+
+def profile_chunk(torch, render_fn, rays, model):
   """Device time of one render chunk under torch.profiler, by kernel
-  name (K2, cuBLAS GEMMs) and by the labelled calls hash_encode (the
-  index and weight math around K2) and max_dilate, with the device idle
-  share against the host clock. Returns the breakdown in ms."""
+  name (the fused encode, K2, cuBLAS GEMMs) and by the labelled calls:
+  the model's encoders (what else runs under them: index and weight math
+  outside the kernel) and max_dilate, with the device idle share against
+  the host clock. Returns the breakdown in ms."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile, record_function
-  from snerf_tpu_torch.models import hashgrid
   from snerf_tpu_torch.ops import stepfun
 
   def labelled(fn, label):
@@ -867,9 +927,9 @@ def profile_chunk(torch, render_fn, rays):
         return fn(*args, **kwargs)
     return wrapped
 
-  orig = hashgrid.hash_encode, stepfun.max_dilate
-  hashgrid.hash_encode = labelled(orig[0], "hash_encode")
-  stepfun.max_dilate = labelled(orig[1], "max_dilate")
+  orig = stepfun.max_dilate
+  stepfun.max_dilate = labelled(orig, "max_dilate")
+  saved = _label_encoders(model, "hash_encode")
   try:
     render_fn(rays)
     torch.cuda.synchronize()
@@ -880,7 +940,9 @@ def profile_chunk(torch, render_fn, rays):
       torch.cuda.synchronize()
       wall_ms = (time.perf_counter() - t0) * 1e3
   finally:
-    hashgrid.hash_encode, stepfun.max_dilate = orig
+    stepfun.max_dilate = orig
+    for m, fn in saved:
+      m.encode_fn = fn
 
   def under(e, label):
     while e is not None:
@@ -889,29 +951,23 @@ def profile_chunk(torch, render_fn, rays):
       e = e.cpu_parent
     return False
 
-  def kind(name):
-    if "gather_rows_kernel" in name:
-      return "K2 gather"
-    if "gemm" in name.lower():
-      return "matmul (cuBLAS)"
-    return None
-
   events = prof.events()
   device = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
-  out = {"K2 gather": 0.0, "matmul (cuBLAS)": 0.0,
-         "hash index/weight math": 0.0, "max_dilate": 0.0}
+  out = {"fused encode forward": 0.0, "K2 gather": 0.0,
+         "matmul (cuBLAS)": 0.0, "hash index/weight math": 0.0,
+         "max_dilate": 0.0}
   by_name = {}
   for e in device:
     ms = e.time_range.elapsed_us() / 1e3
     by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if kind(e.name):
-      out[kind(e.name)] += ms
+    if _hash_kind(e.name) in out:
+      out[_hash_kind(e.name)] += ms
   for e in events:
     if e.device_type != DeviceType.CPU or not e.kernels:
       continue
     for k in e.kernels:
-      if kind(k.name):
+      if _hash_kind(k.name):
         continue
       if under(e, "max_dilate"):
         out["max_dilate"] += k.duration / 1e3
@@ -928,7 +984,7 @@ def profile_chunk(torch, render_fn, rays):
   top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
   log(f"  profile of one chunk: wall {wall_ms:.2f} ms, device busy "
       f"{busy:.2f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:5]:
+  for k in list(out)[:6]:
     log(f"    {k}: {out[k]:.3f} ms ({100 * out[k] / busy:.1f}%)")
   for name, ms in top:
     log(f"    kernel {name[:90]}: {ms:.3f} ms")
@@ -938,7 +994,9 @@ def profile_chunk(torch, render_fn, rays):
 def zip_slice(torch, scene, views, view_rays, card):
   """Phase 6: the waymo_zipnerf hash arm at full width."""
   from snerf_tpu_torch.config import load_config, zip_model_config
+  from snerf_tpu_torch.models.hashgrid import hash_encode_plain
   from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import hash_encode as he
   from snerf_tpu_torch.ops import hash_ops
   from snerf_tpu_torch.ops.fused_mlp import fused_mlp
   from snerf_tpu_torch.train.renderer import (make_zip_eval_render_fn,
@@ -951,7 +1009,7 @@ def zip_slice(torch, scene, views, view_rays, card):
   t0 = time.perf_counter()
   model = zip_init_(ZipNerfModel(zcfg, device="cuda"), seed=0,
                     table_scale=ZIP_TABLE_SCALE).eval()
-  plain_model = ZipNerfModel(zcfg, gather_fn=hash_ops.gather_rows_plain,
+  plain_model = ZipNerfModel(zcfg, encode_fn=hash_encode_plain,
                              device="cuda").eval()
   plain_model.load_state_dict(model.state_dict())
   rows = [m.encoder.spec.total_rows for m in model.mlps()]
@@ -966,7 +1024,7 @@ def zip_slice(torch, scene, views, view_rays, card):
 
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  hash_ops.gather_rows.launches = 0
+  hash_ops.gather_rows.launches = he.hash_encode_fwd.launches = 0
   fused_mlp.launches = 0
   outs, secs = [], []
   for i in views:
@@ -976,7 +1034,8 @@ def zip_slice(torch, scene, views, view_rays, card):
     outs.append(render_image(render_fn, rays, chunk=cfg.chunk))
     torch.cuda.synchronize()
     secs.append(time.perf_counter() - t0)
-  launches = hash_ops.gather_rows.launches
+  launches = he.hash_encode_fwd.launches
+  k2_launches = hash_ops.gather_rows.launches
   k1_launches = fused_mlp.launches
   peak = torch.cuda.max_memory_allocated()
   n_chunks = len(views) * -(-H * W // cfg.chunk)
@@ -998,11 +1057,15 @@ def zip_slice(torch, scene, views, view_rays, card):
     sem_err = float((sem.sum(-1) - acc[..., 0]).abs().max())
     check(sem_err <= 1e-4, f"view {i}: semantic rows do not sum to acc "
           f"({sem_err})")
-  log(f"  K2 launches on the zip path: {launches} (30 per chunk x "
-      f"{n_chunks} chunks expected); K1 launches {k1_launches}")
-  check(launches == 30 * n_chunks,
-        f"the zip path launched K2 {launches} times, expected "
-        f"{30 * n_chunks}")
+  log(f"  fused encode launches on the zip path: {launches} "
+      f"({ENCODE_PER_MLP} per chunk x {n_chunks} chunks expected); K2 "
+      f"gather launches {k2_launches} (0 expected); K1 launches "
+      f"{k1_launches}")
+  check(launches == ENCODE_PER_MLP * n_chunks,
+        f"the zip path launched the fused encode {launches} times, expected "
+        f"{ENCODE_PER_MLP * n_chunks}")
+  check(k2_launches == 0, f"the zip path launched K2's gather {k2_launches} "
+        "times")
   log(f"  zip render rate (2nd view, steady): {H * W / secs[-1]:.1f} "
       f"rays/s; peak device memory {peak / 2**30:.3f} GiB "
       f"(torch.cuda.max_memory_allocated, both models' tables included) "
@@ -1015,18 +1078,18 @@ def zip_slice(torch, scene, views, view_rays, card):
           for k in ("rgb", "acc", "semantic")}
   errs["distance_rel"] = float(((got["distance"] - want["distance"]).abs()
                                 / want["distance"].abs()).max())
-  log(f"  one chunk, K2 model vs plain-gather model: {errs} "
+  log(f"  one chunk, fused-encode model vs plain-encode model: {errs} "
       f"(tol {ZIP_RENDER_TOL})")
   check(all(v <= ZIP_RENDER_TOL for v in errs.values()),
-        f"K2 render disagrees with the plain-gather model: {errs}")
+        f"fused-encode render disagrees with the plain-encode model: {errs}")
   plain_fn = make_zip_eval_render_fn(plain_model)
   p1 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
   k1 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
   k2 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
   p2 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
-  log(f"  one chunk end to end: K2 model {(k1 + k2) / 2:.2f} ms, "
-      f"plain-gather model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
-      f"{p1:.2f}/{p2:.2f}]")
+  log(f"  one chunk end to end: fused-encode model {(k1 + k2) / 2:.2f} ms, "
+      f"plain-encode model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
+      f"{p1:.2f}/{p2:.2f}] | {card}")
   with torch.no_grad():
     for mlp in plain_model.mlps():
       mlp.encoder.embeddings.zero_()
@@ -1038,7 +1101,7 @@ def zip_slice(torch, scene, views, view_rays, card):
         f"the render (max rgb change {moved})")
   del plain_model, flat, want
   torch.cuda.empty_cache()
-  profile_chunk(torch, render_fn, chunk_rays)
+  profile_chunk(torch, render_fn, chunk_rays, model)
 
 
 def sass_check(so, nvcc):
@@ -1068,23 +1131,14 @@ def sass_check(so, nvcc):
 def spill_check(build_log):
   """ptxas's spill stores and loads of K1's wgmma kernels (forward, dgrad,
   wgrad) from the build's -v lines: each must be 0."""
-  spills, name = {}, None
-  for line in build_log.splitlines():
-    m = re.search(r"(?:Compiling entry function|Function properties for)"
-                  r" '?([\w$]+)", line)
-    if m:
-      name = m.group(1)
-    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-    if m and name:
-      spills[name] = (int(m.group(1)), int(m.group(2)))
-  k1 = {n: v for n, v in spills.items()
-        if "k1_wgmma_kernel" in n or "fused_mlp_bwd_wgrad_kernel" in n}
+  k1 = spill_lines(build_log, ("k1_wgmma_kernel",
+                               "fused_mlp_bwd_wgrad_kernel"))
   log(f"  spill stores/loads of K1's wgmma kernels: "
-      f"{ {n[-40:]: v for n, v in k1.items()} }")
+      f"{ {n[-40:]: v[:2] for n, v in k1.items()} }")
   check(len(k1) == 3, f"ptxas lines of K1's three wgmma kernels not found: "
         f"{sorted(k1)}")
-  check(all(v == (0, 0) for v in k1.values()), f"K1's wgmma kernels spill: "
-        f"{k1}")
+  check(all(v[:2] == (0, 0) for v in k1.values()), f"K1's wgmma kernels "
+        f"spill: {k1}")
 
 
 def bound_ms(bytes_, flops=0.0, flop_rate=None):
@@ -1118,7 +1172,7 @@ def scatter_check(torch, hash_ops, name, idx, g, rows, lo, hi, iters):
   chosen = hash_ops.scatter_variant(rows, c)
   got = hash_ops.scatter_add_rows(idx, g, rows)
   plain = hash_ops.scatter_add_rows_plain(idx, g, rows)
-  # table[idx]'s own backward, the plain pair's in phase 8
+  # table[idx]'s own backward, the plain encode's in phase 8
   put = torch.zeros(rows, c, device="cuda").index_put_(
       (idx.long(),), g, accumulate=True)
   control = torch.zeros(rows, c, dtype=torch.float64, device="cuda")
@@ -1172,53 +1226,323 @@ CAPTURED_LEVELS = (("prop_mlp_0", 0), ("prop_mlp_0", 2), ("prop_mlp_0", 3),
 
 def capture_zip_levels(torch, scene, want=CAPTURED_LEVELS):
   """One zip train step (zip_train_setup: the seeded init, batch 32,768)
-  whose hash encoders record their gathers. Returns ({(mlp, level): (idx
-  [Q] int32, g [Q, C], rows)} for the levels in `want`, the indices each
-  level's gather took and the gradient its backward scattered, and
+  whose hash encoders record their positions and the gradient of their
+  features. Returns ({mlp: (x [N, 3], g [N, L, C], spec)}, {(mlp, level):
+  (idx [Q] int32, g [Q, C], rows)} for the levels in `want`, and
   {(mlp, level): mean distinct rows among a warp's 32 consecutive
-  updates} for every level)."""
+  updates} for every level). A level's idx and g are what its gather and
+  scatter-add took before the fused encode: the 8 corners' level-local
+  rows of each point from the plain `level_rows_weights`, and the update
+  w * g each took (zero for a point outside [0, 1]^3)."""
   from snerf_tpu_torch.models.hashgrid import HashEncoding
-  from snerf_tpu_torch.ops import hash_ops
+  from snerf_tpu_torch.ops import hash_encode as he
 
   *_, state, step = zip_train_setup(torch, scene)
-  captured, distinct = {}, {}
+  encoders = {}
 
-  def recorder(mlp, spec):
-    calls = [0]
+  def recorder(mlp, encode):
+    def record(x, table, spec):
+      out = encode(x, table, spec)
+      xf = x.detach().reshape(-1, 3)
 
-    def gather(table, idx):
-      key = (mlp, calls[0] % spec.num_levels)
-      calls[0] += 1
-      flat = idx.reshape(-1)
-      srt = flat[:flat.numel() // 32 * 32].view(-1, 32).sort(dim=1).values
-      distinct[key] = float(1 + (srt[:, 1:] != srt[:, :-1]).sum(1).float()
-                            .mean())
-      del srt
-      out = hash_ops.gather_rows(table, idx)
-      if key in want and out.requires_grad:
-        def keep(g, key=key, flat=flat, rows=table.shape[0]):
-          captured[key] = (flat, g.reshape(-1, g.shape[-1]).contiguous(),
-                           rows)
-        out.register_hook(keep)
+      def keep(g):
+        encoders[mlp] = (xf, g.reshape(xf.shape[0], spec.num_levels,
+                                       spec.level_dim).contiguous(), spec)
+      out.register_hook(keep)
       return out
-    return gather
+    return record
 
   for name, m in state.model.named_modules():
     if isinstance(m, HashEncoding):
-      m.gather_fn = recorder(name.split(".")[0], m.spec)
+      m.encode_fn = recorder(name.split(".")[0], m.encode_fn)
   step(state, torch.Generator(device="cuda").manual_seed(0))
   torch.cuda.synchronize()
   del state, step
   torch.cuda.empty_cache()
-  check(set(captured) == set(want), f"captured levels {sorted(captured)}, "
+  levels, distinct = {}, {}
+  for mlp, (xf, g, spec) in encoders.items():
+    oob = ((xf < 0) | (xf > 1)).any(-1)
+    for lvl in range(spec.num_levels):
+      idx, w = he.level_rows_weights(xf, spec, lvl)
+      flat = idx.reshape(-1)
+      srt = flat[:flat.numel() // 32 * 32].view(-1, 32).sort(dim=1).values
+      distinct[(mlp, lvl)] = float(1 + (srt[:, 1:] != srt[:, :-1]).sum(1)
+                                   .float().mean())
+      del srt
+      if (mlp, lvl) in want:
+        upd = torch.where(oob[:, None, None], 0.0,
+                          w[..., None] * g[:, lvl, None, :])
+        levels[(mlp, lvl)] = (flat, upd.reshape(-1, spec.level_dim)
+                              .contiguous(), spec.sizes[lvl])
+      del idx, w
+  check(set(levels) == set(want), f"captured levels {sorted(levels)}, "
         f"wanted {sorted(want)}")
-  return captured, distinct
+  return encoders, levels, distinct
+
+
+def _encode_control(torch, he, xf, table, g, spec, need_dx):
+  """The fused encode's backward in float64 from the float32 cells (the
+  plain version's indices and weights, so no cell moves): per level the
+  table gradient [size, C] and the largest single update, and dx with the
+  last level's share apart (or None)."""
+  dg = torch.where(((xf < 0) | (xf > 1)).any(-1)[:, None, None], 0.0,
+                   g).double()
+  levels = torch.split(table, list(spec.sizes))
+  grads, biggest = [], []
+  dx = torch.zeros(xf.shape, dtype=torch.float64, device=xf.device)
+  last = None
+  dfrac = torch.tensor((-1.0, 1.0), dtype=torch.float64, device=xf.device)
+  for lvl in range(spec.num_levels):
+    idx, a = he._level_cell(xf, spec, lvl)
+    a = a.double()
+    w = he._corner_product(a, torch.mul)
+    upd = w[..., None] * dg[:, lvl, None, :]                 # [N, 8, C]
+    grads.append(torch.zeros(spec.sizes[lvl], spec.level_dim,
+                             dtype=torch.float64, device=xf.device)
+                 .index_add_(0, idx.reshape(-1), upd.reshape(-1,
+                                                             spec.level_dim)))
+    biggest.append(float(upd.abs().max()))
+    del upd
+    if need_dx:
+      dots = (levels[lvl][idx.long()].double() * dg[:, lvl, None, :]).sum(-1)
+      share = torch.zeros_like(dx)
+      for axis in range(3):
+        da = a.clone()
+        da[:, :, axis] = dfrac
+        share[:, axis] = float(spec.scales[lvl]) * (
+            he._corner_product(da, torch.mul) * dots).sum(-1)
+      dx += share
+      last = share
+      del dots
+  return grads, biggest, (dx, last) if need_dx else None
+
+
+def encode_case(torch, name, spec, n, iters, need_dx=False, oob=0.0,
+                x=None, g=None, seed=0):
+  """The fused encode's forward and backward kernels against their plain
+  versions on the card at one shape: x uniform in [0, 1]^3 (a share
+  `oob` of the points moved outside it) and a table uniform in +-1, or
+  captured x and g with a table drawn so. Forward: error / max|plain|
+  within ENCODE_FWD_TOL, beside the fault of one corner left out of the
+  blend at the finest level. Backward: the table gradient per level
+  against an f64 control within SCATTER_TOL (the plain f32 index_add_
+  version's error beside), beside the fault of the level's largest
+  update missing; dx (need_dx) within ENCODE_DX_TOL of max|control|,
+  beside the fault of the last level left out. CUDA-event times in
+  turns, GB/s, the bounds, and the forward into a level-major [L, N, C]
+  output beside it."""
+  import ctypes
+  from snerf_tpu_torch.ops import _cuda
+  from snerf_tpu_torch.ops import hash_encode as he
+
+  lib = _cuda.load("hash_encode", he._bind)
+
+  def level_major(out):
+    """The forward kernel into out [L, N, C]: point stride C, level
+    stride N * C (floats)."""
+    _cuda.check_launch(lib, lib.snerf_hash_encode_fwd(
+        x.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+        ctypes.byref(he.pack_spec(spec)), c, n * c, x.device.index,
+        torch.cuda.current_stream().cuda_stream), "level-major forward")
+
+  gen = torch.Generator(device="cuda").manual_seed(seed * 131 + n)
+  c, lv = spec.level_dim, spec.num_levels
+  table = torch.rand(spec.total_rows, c, generator=gen, device="cuda") * 2 - 1
+  if x is None:
+    x = torch.rand(n, 3, generator=gen, device="cuda")
+    if oob:
+      moved = torch.rand(n, generator=gen, device="cuda") < oob
+      x[moved] = x[moved] * 1.4 - 0.2
+  if g is None:
+    g = torch.randn(n, lv, c, generator=gen, device="cuda")
+  n = x.shape[0]
+  out_of = int(((x < 0) | (x > 1)).any(-1).sum())
+  # forward
+  got = he.hash_encode_fwd(x, table, spec)
+  want = he.hash_encode_fwd_plain(x, table, spec)
+  lm = x.new_empty(lv, n, c)
+  level_major(lm)
+  torch.cuda.synchronize()
+  scale = float(want.abs().max())
+  fwd_abs = float((got - want).abs().max())
+  fwd_err = fwd_abs / scale
+  equal = torch.equal(got, want)
+  lm_equal = torch.equal(lm, want.transpose(0, 1))
+  idx, w = he.level_rows_weights(x, spec, lv - 1)
+  inside = ~((x < 0) | (x > 1)).any(-1)
+  corner = torch.split(table, list(spec.sizes))[-1][idx[:, 7].long()]
+  fwd_fault = float((w[:, 7, None] * corner)[inside].abs().max()) / scale
+  touched = sum(int(torch.unique(he.level_rows_weights(x, spec, l)[0])
+                    .numel()) for l in range(lv))
+  del got, want, idx, w, corner
+  p1 = time_ms(torch, lambda: he.hash_encode_fwd_plain(x, table, spec), iters)
+  k1 = time_ms(torch, lambda: he.hash_encode_fwd(x, table, spec), iters)
+  l1 = time_ms(torch, lambda: level_major(lm), iters)
+  k2 = time_ms(torch, lambda: he.hash_encode_fwd(x, table, spec), iters)
+  l2 = time_ms(torch, lambda: level_major(lm), iters)
+  p2 = time_ms(torch, lambda: he.hash_encode_fwd_plain(x, table, spec), iters)
+  del lm
+  fk, fp, fl = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+  useful = n * (12 + 4 * lv * c)
+  fb, fby = bound_ms(useful + touched * c * 4)
+  # backward: the path's (no dx), then with dx when asked
+  dtable, _ = he.hash_encode_bwd(x, table, g, spec, False)
+  plain_dt, _ = he.hash_encode_bwd_plain(x, table, g, spec, False)
+  grads, biggest, dxc = _encode_control(torch, he, x, table, g, spec, need_dx)
+  torch.cuda.synchronize()
+  tab_errs, tab_abs, plain_errs, faults = [], [], [], []
+  for lvl, (k_l, p_l, c_l) in enumerate(zip(
+      torch.split(dtable, list(spec.sizes)),
+      torch.split(plain_dt, list(spec.sizes)), grads)):
+    cmax = float(c_l.abs().max())
+    tab_abs.append(float((k_l.double() - c_l).abs().max()))
+    tab_errs.append(tab_abs[-1] / cmax)
+    plain_errs.append(float((p_l.double() - c_l).abs().max()) / cmax)
+    faults.append(biggest[lvl] / cmax)
+  finite = bool(torch.isfinite(dtable).all())
+  del dtable, plain_dt, grads
+  q1 = time_ms(torch, lambda: he.hash_encode_bwd_plain(x, table, g, spec,
+                                                       False), iters)
+  b1 = time_ms(torch, lambda: he.hash_encode_bwd(x, table, g, spec, False),
+               iters)
+  b2 = time_ms(torch, lambda: he.hash_encode_bwd(x, table, g, spec, False),
+               iters)
+  q2 = time_ms(torch, lambda: he.hash_encode_bwd_plain(x, table, g, spec,
+                                                       False), iters)
+  bk, bp = (b1 + b2) / 2, (q1 + q2) / 2
+  bb, bby = bound_ms(useful + 2 * spec.total_rows * c * 4)
+  dx_txt, dx_err, dx_fault = "", None, None
+  if need_dx:
+    _, dx = he.hash_encode_bwd(x, table, g, spec, True)
+    _, plain_dx = he.hash_encode_bwd_plain(x, table, g, spec, True)
+    ctrl, last = dxc
+    dmax = float(ctrl.abs().max())
+    dx_err = float((dx.double() - ctrl).abs().max()) / dmax
+    plain_dx_err = float((plain_dx.double() - ctrl).abs().max()) / dmax
+    dx_fault = float(last.abs().max()) / dmax
+    finite = finite and bool(torch.isfinite(dx).all())
+    del dx, plain_dx, ctrl, last
+    d1 = time_ms(torch, lambda: he.hash_encode_bwd(x, table, g, spec, True),
+                 iters)
+    dx_txt = (f"; dx err/max|f64| {dx_err:.2e} (plain f32 "
+              f"{plain_dx_err:.2e}; tol {ENCODE_DX_TOL}; last level left "
+              f"out {dx_fault:.2e}), backward with dx {d1:.3f} ms")
+  log(f"  {name}: N={n} ({out_of} outside [0,1]^3) L={lv} C={c}: forward "
+      f"equal={equal} err/max|plain| {fwd_err:.1e} (tol {ENCODE_FWD_TOL}; a "
+      f"corner left out {fwd_fault:.2e}), kernel {fk:.3f} ms "
+      f"({useful / fk / 1e6:.0f} GB/s) plain {fp:.3f} ms bound {fb:.3f} ms "
+      f"({fby}, {touched} rows touched) level-major output {fl:.3f} ms "
+      f"(equal {lm_equal}) [{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}, "
+      f"{l1:.3f}/{l2:.3f}]")
+  log(f"    backward: table grad err/max|f64| by level "
+      + " ".join(f"{e:.1e}" for e in tab_errs)
+      + f" (tol {SCATTER_TOL}; plain f32 index_add_ worst "
+      f"{max(plain_errs):.1e}; an update missing at least {min(faults):.1e})"
+      f", kernel {bk:.3f} ms ({useful / bk / 1e6:.0f} GB/s) plain "
+      f"{bp:.3f} ms bound {bb:.3f} ms ({bby}) [{b1:.3f}/{b2:.3f} vs "
+      f"{q1:.3f}/{q2:.3f}]{dx_txt}")
+  check(finite, f"{name}: the fused encode's backward is not finite")
+  check(fwd_err <= ENCODE_FWD_TOL, f"{name}: fused forward off the plain "
+        f"version by {fwd_err:.2e} of its max")
+  check(lm_equal, f"{name}: the level-major forward differs")
+  check(fwd_fault > ENCODE_FWD_TOL, f"{name}: ENCODE_FWD_TOL would not see "
+        f"a corner left out ({fwd_fault:.2e})")
+  check(max(tab_errs) <= SCATTER_TOL, f"{name}: fused table gradient off "
+        f"the f64 control: {tab_errs}")
+  check(min(faults) > SCATTER_TOL, f"{name}: SCATTER_TOL would not see a "
+        f"missing update: {faults}")
+  if need_dx:
+    check(dx_err <= ENCODE_DX_TOL, f"{name}: fused dx off the f64 control "
+          f"by {dx_err:.2e} of its max")
+    check(dx_fault > ENCODE_DX_TOL, f"{name}: ENCODE_DX_TOL would not see "
+          f"the last level left out ({dx_fault:.2e})")
+  del x, g, table
+  torch.cuda.empty_cache()
+  return dict(err=fwd_err, abs_err=fwd_abs, tab_err=max(tab_errs),
+              tab_abs_err=max(tab_abs), dx_err=dx_err, ms=fk, plain_ms=fp,
+              bound_ms=fb, bound_by=fby, level_major_ms=fl, bwd_ms=bk,
+              bwd_plain_ms=bp, bwd_bound_ms=bb, bwd_bound_by=bby)
+
+
+def encode_levels(torch, name, spec, x, g, iters):
+  """The fused encode one level at a time at captured x and g (a one-level
+  spec on the level's rows): forward and backward ms by level, and for a
+  level the rule sends through a shared-memory copy, the backward through
+  warp aggregation beside it (the same kernel, the level's flag cleared
+  in the packed spec). Returns {"fwd": [...], "bwd": [...], "warp":
+  {level: ms}}."""
+  import ctypes
+  from snerf_tpu_torch.models.hashgrid import GridSpec
+  from snerf_tpu_torch.ops import _cuda
+  from snerf_tpu_torch.ops import hash_encode as he
+
+  gen = torch.Generator(device="cuda").manual_seed(17)
+  table = torch.rand(spec.total_rows, spec.level_dim, generator=gen,
+                     device="cuda") * 2 - 1
+  lib = _cuda.load("hash_encode", he._bind)
+  stream = torch.cuda.current_stream().cuda_stream
+  res = {"fwd": [], "bwd": [], "warp": {}}
+  for lvl in range(spec.num_levels):
+    one = GridSpec((spec.scales[lvl],), (spec.resolutions[lvl],),
+                   (spec.sizes[lvl],), (0, spec.sizes[lvl]), spec.level_dim)
+    tab = table[spec.offsets[lvl]:spec.offsets[lvl + 1]]
+    gl = g[:, lvl:lvl + 1].contiguous()
+    res["fwd"].append(time_ms(torch, lambda: he.hash_encode_fwd(x, tab, one),
+                              iters))
+    res["bwd"].append(time_ms(torch, lambda: he.hash_encode_bwd(
+        x, tab, gl, one, False), iters))
+    packed = he.pack_spec(one)
+    if packed.shared[0]:
+      warp = he._Spec.from_buffer_copy(packed)
+      warp.shared[0] = 0
+      dt = torch.zeros_like(tab)
+
+      def warp_bwd():
+        dt.zero_()
+        _cuda.check_launch(lib, lib.snerf_hash_encode_bwd(
+            x.data_ptr(), tab.data_ptr(), gl.data_ptr(), dt.data_ptr(), None,
+            x.shape[0], ctypes.byref(warp), x.device.index, stream),
+            "hash_encode_bwd, warp aggregation")
+      res["warp"][lvl] = time_ms(torch, warp_bwd, iters)
+      del dt
+    del gl
+  log(f"    {name}, one level at a time: forward ms "
+      + " ".join(f"{v:.3f}" for v in res["fwd"]) + f" (sum "
+      f"{sum(res['fwd']):.3f}); backward ms "
+      + " ".join(f"{v:.3f}" for v in res["bwd"]) + f" (sum "
+      f"{sum(res['bwd']):.3f}); the shared levels through warp aggregation "
+      + (", ".join(f"level {l} {v:.3f}" for l, v in res["warp"].items())
+         or "none"))
+  del table
+  torch.cuda.empty_cache()
+  return res
+
+
+def spill_lines(build_log, keys):
+  """{kernel: (spill store bytes, spill load bytes, registers)} from the
+  ptxas -v lines of a build, for the kernels whose name holds one of
+  `keys`."""
+  out, name = {}, None
+  for line in build_log.splitlines():
+    m = re.search(r"(?:Compiling entry function|Function properties for)"
+                  r" '?([\w$]+)", line)
+    if m:
+      name = m.group(1)
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if m and name and any(k in name for k in keys):
+      out[name] = [int(m.group(1)), int(m.group(2)), None]
+    m = re.search(r"Used (\d+) registers", line)
+    if m and name in out:
+      out[name][2] = int(m.group(1))
+  return {n: tuple(v) for n, v in out.items()}
 
 
 def probe_phase(torch, iters=20):
-  """Phase 4d: P1 and P2 against their plain versions (bit-equal), then
-  the survey of the gather primitives. Returns (results of the P1 and P2
-  cases, the survey, the launch counts of the survey run)."""
+  """Phase 4d: P1 and P2 against their plain versions (bit-equal), P2
+  against Tensor.gather by events and device time, then the survey of
+  the gather primitives. Returns (results of the P1 and P2 cases, the
+  survey, the launch counts of the survey run)."""
+  from snerf_tpu_torch.ops import hash_ops
   from snerf_tpu_torch.probes import gather as probes
 
   res = {}
@@ -1268,27 +1592,53 @@ def probe_phase(torch, iters=20):
                                   bound_ms=b_ms, bound_by=b_by)
   del x, idx, idx_l, got, want, tab
   torch.cuda.empty_cache()
-  # the probe entry point, with its launches counted
-  probes.take_along_axis.launches = probes.gather_select.launches = 0
+  # P2 against Tensor.gather at the probe's own shape: events and the
+  # profiler's device time
+  p2 = probes.p2_times(log=lambda s: log("  " + s))
+  res["P2 graph"] = dict(
+      res[f"P2 8x4992 {1 << 17}"], ms=p2["graph_ms"],
+      library_ms=p2["gather_graph_ms"], device_ms=p2["device_ms"],
+      library_device_ms=p2["gather_device_ms"], back_to_back_ms=p2["ms"],
+      library_back_to_back_ms=p2["gather_ms"])
+  check(p2["equal"], "P2 differs from Tensor.gather in p2_times")
+  # the kernels' own times: back to back, each call's host time (P2's
+  # Python wrapper and ctypes, ~20 us) exceeds its device time, so those
+  # CUDA events read the host (printed beside); over a graph replay and
+  # under the profiler they read the device
+  check(p2["device_ms"] is not None and p2["gather_device_ms"] is not None,
+        "the profiler recorded no device time for P2 or Tensor.gather")
+  check(p2["device_ms"] <= p2["gather_device_ms"], f"P2's device time "
+        f"{p2['device_ms']:.4f} ms exceeds Tensor.gather's "
+        f"{p2['gather_device_ms']:.4f} ms")
+  check(p2["graph_ms"] <= p2["gather_graph_ms"], f"P2 over a graph replay "
+        f"{p2['graph_ms']:.4f} ms exceeds Tensor.gather's "
+        f"{p2['gather_graph_ms']:.4f} ms")
+  # the probe entry point, with its launches counted (K2's gather and
+  # scatter-add, on no path since the fused encode, run there too)
+  for k in (probes.take_along_axis, probes.gather_select,
+            hash_ops.gather_rows, hash_ops.scatter_add_rows):
+    k.launches = 0
   survey = probes.survey(log=lambda s: log("  " + s), iters=iters)
   counts = {"probe_take_along_axis": probes.take_along_axis.launches,
-            "probe_gather_select": probes.gather_select.launches}
-  log(f"  probe launches in the survey: {counts}")
-  check(all(v > 0 for v in counts.values()), f"a probe kernel was not "
-        f"launched by the survey: {counts}")
+            "probe_gather_select": probes.gather_select.launches,
+            "hash_gather": hash_ops.gather_rows.launches,
+            "hash_scatter_add": hash_ops.scatter_add_rows.launches}
+  log(f"  launches in the survey: {counts}")
+  check(all(v > 0 for v in counts.values()), f"a kernel was not launched "
+        f"by the survey: {counts}")
   torch.cuda.empty_cache()
   return res, survey, counts
 
 
-def profile_zip_step(torch, step_fn):
-  """Device time of one zip train step under torch.profiler: K2 gathers,
-  scatter-adds (each launch in order), cuBLAS, the forward hash index and
-  weight math (under hash_encode), the forward losses, the backward's
-  other kernels, Adam and the rest; with the idle share against the host
-  clock."""
+def profile_zip_step(torch, step_fn, model):
+  """Device time of one zip train step under torch.profiler: the fused
+  encode forward and backward, K2 gathers and scatter-adds (each launch
+  in order; none expected), cuBLAS, what else runs under the encoders in
+  the forward (index and weight math outside the kernel), the forward
+  losses, the backward's other kernels, Adam and the rest; with the idle
+  share against the host clock."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile, record_function
-  from snerf_tpu_torch.models import hashgrid
   from snerf_tpu_torch.train import losses, zip_trainer
 
   def labelled(fn, label):
@@ -1297,15 +1647,14 @@ def profile_zip_step(torch, step_fn):
         return fn(*args, **kwargs)
     return wrapped
 
-  patched = [(hashgrid, "hash_encode", "hash_encode"),
-             (zip_trainer, "hash_decay_loss", "losses")] + [
-                 (losses, n, "losses") for n in (
-                     "charbonnier_loss", "interlevel_loss_anti",
-                     "distortion_loss", "zip_smooth_loss",
-                     "zip_semantic_smooth_loss", "masked_mean")]
+  patched = [(zip_trainer, "hash_decay_loss", "losses")] + [
+      (losses, n, "losses") for n in (
+          "charbonnier_loss", "interlevel_loss_anti", "distortion_loss",
+          "zip_smooth_loss", "zip_semantic_smooth_loss", "masked_mean")]
   orig = [getattr(m, n) for m, n, _ in patched]
   for m, n, label in patched:
     setattr(m, n, labelled(getattr(m, n), label))
+  saved = _label_encoders(model, "hash_encode")
   try:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1317,15 +1666,8 @@ def profile_zip_step(torch, step_fn):
   finally:
     for (m, n, _), f in zip(patched, orig):
       setattr(m, n, f)
-
-  def kind(name):
-    if "gather_rows_kernel" in name:
-      return "K2 gather"
-    if "scatter_add_rows" in name:
-      return "scatter-add"
-    if "gemm" in name.lower() or "gemv" in name.lower():
-      return "matmul (cuBLAS)"
-    return None
+    for m, fn in saved:
+      m.encode_fn = fn
 
   def context(e):
     while e is not None:
@@ -1341,7 +1683,8 @@ def profile_zip_step(torch, step_fn):
     return "other forward (sampling, compositing, activations)"
 
   events = prof.events()
-  out = {k: 0.0 for k in ("K2 gather", "scatter-add", "matmul (cuBLAS)",
+  out = {k: 0.0 for k in ("fused encode forward", "fused encode backward",
+                          "K2 gather", "scatter-add", "matmul (cuBLAS)",
                           "hash index/weight math (forward)",
                           "losses (forward)",
                           "backward (elementwise, reductions, copies)",
@@ -1356,14 +1699,14 @@ def profile_zip_step(torch, step_fn):
     ms = e.time_range.elapsed_us() / 1e3
     busy += ms
     by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if kind(e.name):
-      out[kind(e.name)] += ms
-    if kind(e.name) == "scatter-add":
+    if _hash_kind(e.name):
+      out[_hash_kind(e.name)] += ms
+    if _hash_kind(e.name) in ("scatter-add", "fused encode backward"):
       scatters.append((e.time_range.start, ms))
   for e in events:
     if e.device_type == DeviceType.CPU and e.kernels:
       for k in e.kernels:
-        if not kind(k.name):
+        if not _hash_kind(k.name):
           out[context(e)] += k.duration / 1e3
   if busy == 0:
     log(f"  profile of one step: wall {wall_ms:.1f} ms; torch.profiler "
@@ -1372,16 +1715,15 @@ def profile_zip_step(torch, step_fn):
   out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
   log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
       f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:8]:
+  for k in list(out)[:10]:
     log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
   per_launch = [ms for _, ms in sorted(scatters)]
-  log(f"    scatter-add launches in order ({len(per_launch)}, "
+  log(f"    table-gradient launches in order ({len(per_launch)}, "
       f"{sum(per_launch):.2f} ms together; the backward runs nerf_mlp, "
-      f"prop_mlp_1, prop_mlp_0, each level 9..0): "
-      + " ".join(f"{v:.3f}" for v in per_launch))
+      f"prop_mlp_1, prop_mlp_0): " + " ".join(f"{v:.3f}" for v in per_launch))
   for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
     log(f"    kernel {name[:90]}: {ms:.2f} ms")
-  out["scatter_per_launch"] = per_launch
+  out["bwd_per_launch"] = per_launch
   return out
 
 
@@ -1437,8 +1779,11 @@ def zip_train_setup(torch, scene, log_config=False):
 
 def zip_train_slice(torch, scene, card):
   """Phase 8: the waymo_zipnerf training step at full width. Returns the
-  K2 gather and scatter-add launch counts of the timed steps."""
+  launch counts of the timed steps: the fused encode's forward and
+  backward, and K2's gather and scatter-add (0)."""
+  from snerf_tpu_torch.models.hashgrid import hash_encode_plain
   from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import hash_encode as he
   from snerf_tpu_torch.ops import hash_ops
   from snerf_tpu_torch.train import zip_trainer as zt
 
@@ -1446,13 +1791,16 @@ def zip_train_slice(torch, scene, card):
       torch, scene, log_config=True)
   model = state.model
   gen = torch.Generator(device="cuda").manual_seed(0)
-  kernels = (hash_ops.gather_rows, hash_ops.scatter_add_rows)
+  kernels = {"hash_encode_fwd": he.hash_encode_fwd,
+             "hash_encode_bwd": he.hash_encode_bwd,
+             "hash_gather": hash_ops.gather_rows,
+             "hash_scatter_add": hash_ops.scatter_add_rows}
 
   for _ in range(ZIP_TRAIN_WARMUP):
     step(state, gen)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  for k in kernels:
+  for k in kernels.values():
     k.launches = 0
   losses = []
   t0 = time.perf_counter()
@@ -1460,8 +1808,7 @@ def zip_train_slice(torch, scene, card):
     losses.append(step(state, gen)["loss"])
   torch.cuda.synchronize()
   secs = (time.perf_counter() - t0) / ZIP_TRAIN_STEPS
-  counts = {"hash_gather": hash_ops.gather_rows.launches,
-            "hash_scatter_add": hash_ops.scatter_add_rows.launches}
+  counts = {n: k.launches for n, k in kernels.items()}
   peak = torch.cuda.max_memory_allocated()
   losses = [float(v) for v in losses]
   k = ZIP_TRAIN_STEPS // 3
@@ -1473,21 +1820,23 @@ def zip_train_slice(torch, scene, card):
   log(f"  loss: first {k} mean {first:.5f}, last {k} mean {last:.5f}; "
       f"{' '.join(f'{v:.4f}' for v in losses)}")
   per_step = {n: v / ZIP_TRAIN_STEPS for n, v in counts.items()}
-  log(f"  launches per step: {per_step} (expected {K2_PER_STEP} each)")
+  expected = {"hash_encode_fwd": ENCODE_PER_MLP,
+              "hash_encode_bwd": ENCODE_PER_MLP, "hash_gather": 0,
+              "hash_scatter_add": 0}
+  log(f"  launches per step: {per_step} (expected {expected})")
   check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
   check(last < first, f"the loss did not fall: first {k} {first}, last {k} "
         f"{last}")
   for n, v in counts.items():
-    check(v == K2_PER_STEP * ZIP_TRAIN_STEPS,
-          f"{n} launches {v}, expected {K2_PER_STEP * ZIP_TRAIN_STEPS}")
+    check(v == expected[n] * ZIP_TRAIN_STEPS,
+          f"{n} launches {v}, expected {expected[n] * ZIP_TRAIN_STEPS}")
 
-  prof = profile_zip_step(torch, lambda: step(state, gen))
+  prof = profile_zip_step(torch, lambda: step(state, gen), model)
 
-  # one step of this model against the same weights whose gathers run the
-  # plain pair (table[idx] forward, its scatter-add backward), on the same
-  # draws
-  plain = ZipNerfModel(zcfg, gather_fn=hash_ops.gather_rows_plain,
-                       device="cuda")
+  # one step of this model against the same weights whose encoders run
+  # the plain encode (table[idx] forward, its scatter-add backward), on the
+  # same draws
+  plain = ZipNerfModel(zcfg, encode_fn=hash_encode_plain, device="cuda")
   plain.load_state_dict(model.state_dict())
   pstate = zt.ZipTrainState(step=state.step, model=plain,
                             optimizer=zt.make_zip_optimizer(plain, tcfg))
@@ -1505,7 +1854,7 @@ def zip_train_slice(torch, scene, card):
   lerrs = _table_level_errs(torch, model, plain)
   lworst = max(lerrs.items(), key=lambda kv: kv[1][0])
   fault = min(lerrs.items(), key=lambda kv: kv[1][1])
-  log(f"  one step, kernel model vs plain-pair model: loss rel err "
+  log(f"  one step, fused-encode model vs plain-encode model: loss rel err "
       f"{rel['loss']:.2e} (tol {ZIP_STEP_LOSS_TOL}), metrics {rel}; grads: "
       f"worst relative L2 {worst[1][0]:.2e} at {worst[0]} (tol "
       f"{ZIP_STEP_GRAD_TOL}); tables {tables}")
@@ -1515,11 +1864,12 @@ def zip_train_slice(torch, scene, card):
       + " ".join(f"{n.split('.')[0]}/{lvl} {e:.2e}/{f:.2e}"
                  for (n, lvl), (e, f) in lerrs.items()))
   check(rel["loss"] <= ZIP_STEP_LOSS_TOL,
-        f"kernel step's loss disagrees with the plain pair: {rel}")
+        f"kernel step's loss disagrees with the plain encode: {rel}")
   check(worst[1][0] <= ZIP_STEP_GRAD_TOL,
-        f"kernel step's grads disagree with the plain pair: {worst}")
+        f"kernel step's grads disagree with the plain encode: {worst}")
   check(lworst[1][0] <= ZIP_STEP_GRAD_TOL,
-        f"kernel step's table grads disagree with the plain pair: {lworst}")
+        f"kernel step's table grads disagree with the plain encode: "
+        f"{lworst}")
   check(fault[1][1] > ZIP_STEP_GRAD_TOL,
         f"ZIP_STEP_GRAD_TOL {ZIP_STEP_GRAD_TOL} would not see a doubled row "
         f"at {fault}")
@@ -1535,9 +1885,9 @@ def zip_train_slice(torch, scene, card):
     fn(st, draws)
     torch.cuda.synchronize()
     times[name] = time.perf_counter() - t0
-  log(f"  one step end to end: kernel model {times['kernel']:.4f} / "
-      f"{times['kernel2']:.4f} s, plain-pair model {times['plain']:.4f} / "
-      f"{times['plain2']:.4f} s")
+  log(f"  one step end to end: fused-encode model {times['kernel']:.4f} / "
+      f"{times['kernel2']:.4f} s, plain-encode model {times['plain']:.4f} / "
+      f"{times['plain2']:.4f} s | {card}")
   del model, plain, state, pstate, step, pstep
   torch.cuda.empty_cache()
   return counts, prof
@@ -1585,7 +1935,8 @@ def main() -> int:
   built = _cuda.build_all()
   libs = ", ".join(os.path.relpath(so, ROOT) for so, _ in built.values())
   log(f"[build] {libs} in {time.perf_counter() - t0:.1f} s (parallel)")
-  check(set(built) >= {"fused_mlp", "hash_gather", "gather_probe"},
+  check(set(built) >= {"fused_mlp", "hash_gather", "hash_encode",
+                       "gather_probe"},
         f"kernel sources missing: {sorted(built)}")
   for so, build_log in built.values():
     for line in build_log.splitlines():
@@ -1594,6 +1945,12 @@ def main() -> int:
         log(f"  {line.strip()}")
   sass_check(built["fused_mlp"][0], _cuda._nvcc())
   spill_check(built["fused_mlp"][1])
+  encode_regs = spill_lines(built["hash_encode"][1], ("hash_encode",))
+  log("  fused encode kernels (spill stores, loads, registers): "
+      + ", ".join(f"{n[:48]} {v}" for n, v in encode_regs.items()))
+  check(len(encode_regs) > 0 and all(v[:2] == (0, 0) for v in
+                                     encode_regs.values()),
+        f"the fused encode's kernels spill: {encode_regs}")
   phase_done("1-3 device, build")
 
   # 4. kernel against plain
@@ -1681,7 +2038,7 @@ def main() -> int:
   # the zip step's own indices and gradients, one level of each kind
   log("[kernel] hash_scatter_add at the zip train step's captured indices "
       "and gradients (one step from the seeded init, batch 32768)")
-  captured, distinct = capture_zip_levels(torch, scene)
+  encoders, captured, distinct = capture_zip_levels(torch, scene)
   for mlp, spec in specs:
     log(f"  distinct rows among a warp's 32 consecutive updates, {mlp} "
         "levels 0..9: " + " ".join(f"{distinct[(mlp, l)]:.2f}"
@@ -1702,6 +2059,34 @@ def main() -> int:
   del captured
   torch.cuda.empty_cache()
   phase_done("4c scatter-add")
+
+  # 4e. the fused multi-level encode against its plain versions, at the
+  # zip paths' shapes and at each encoder's captured positions and output
+  # gradient
+  log("[kernel] hash_encode_fwd / hash_encode_bwd (CUDA, fused multi-level "
+      "encode) against hash_encode_fwd_plain / hash_encode_bwd_plain and "
+      "f64 controls")
+  n_nerf, n_prop = 32768 * 32 * 7, 32768 * 64 * 7
+  ecases = [
+      ("nerf MLP, train batch", nerf_spec, n_nerf, 3, True, 0.0),
+      ("prop_mlp_1, train batch", prop1_spec, n_prop, 3, True, 0.0),
+      ("prop_mlp_0, train batch", prop0_spec, n_prop, 3, False, 0.0),
+      ("nerf MLP, render chunk", nerf_spec, 8192 * 32 * 7, 5, False, 0.0),
+      ("prop_mlp_0, render chunk", prop0_spec, 8192 * 64 * 7, 5, False, 0.0),
+      ("ragged", nerf_spec, 777 * 7 + 3, 20, True, 0.0),
+      ("out-of-range points", prop1_spec, 100_003, 20, True, 0.3),
+      ("C=3", make_grid_spec(10, 3, 16, 2048, 19), 50_001, 20, True, 0.05),
+      ("C=8", make_grid_spec(16, 8, 16, 4096, 19), 50_000, 20, True, 0.05),
+  ]
+  eresults = {c[0]: encode_case(torch, *c) for c in ecases}
+  for mlp, (xf, g, spec) in sorted(encoders.items()):
+    eresults[f"captured {mlp}"] = encode_case(
+        torch, f"captured {mlp} (the step's x and output gradient)", spec,
+        xf.shape[0], 3, x=xf, g=g)
+    encode_levels(torch, f"captured {mlp}", spec, xf, g, 3)
+  del encoders, xf, g
+  torch.cuda.empty_cache()
+  phase_done("4e fused encode")
 
   # 4d. the gather probes P1 and P2, and the primitive survey
   log("[kernel] probes P1 take_along_axis and P2 gather_select (CUDA) "
@@ -1822,8 +2207,9 @@ def main() -> int:
       f"; total {sum(phase_secs.values()):.1f} s")
 
   # Each kernel with the launches of its path (the mip train step for K1,
-  # the zip train step for K2 and its scatter-add, the survey for the
-  # probes), its error, times and bound at the path's shapes.
+  # the zip train step for the fused encode, the survey for the probes
+  # and for K2's gather and scatter-add), its error, times and bound at
+  # the path's shapes.
   def entry(name, source, replaces, launches, err, r, library=True):
     return {"name": name, "route": "cuda",
             "source": f"snerf_tpu_torch/csrc/{source}",
@@ -1866,27 +2252,51 @@ def main() -> int:
                     train_counts[name], kresults[name]["err"], kb[name])
               for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
                            "fused_mlp_bwd_reduce")]
-  kernels.append(entry(
+  # the fused encode at the nerf MLP's train batch; its JAX source is the
+  # per-level encode around the Pallas kernel (models/hashgrid.py:116)
+  nerf_case = eresults["nerf MLP, train batch"]
+  bwd_r = dict(ms=nerf_case["bwd_ms"], plain_ms=nerf_case["bwd_plain_ms"],
+               bound_ms=nerf_case["bwd_bound_ms"],
+               bound_by=nerf_case["bwd_bound_by"])
+  for name, replaces, err, r in (
+      ("hash_encode_fwd", "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
+       max(v["abs_err"] for v in eresults.values()), nerf_case),
+      ("hash_encode_bwd", "snerf_tpu/ops/pallas/hash_gather_dense.py:91",
+       max(v["tab_abs_err"] for v in eresults.values()), bwd_r)):
+    kernels.append(dict(entry(name, "hash_encode.cu", replaces,
+                              zip_counts[name], err, r, library=False),
+                        jax_source="snerf_tpu/models/hashgrid.py:116"))
+  # K2's gather and scatter-add run on no path since the fused encode:
+  # their launches are the survey's (0 on the zip paths, checked there)
+  kernels.append(dict(entry(
       "hash_gather", "hash_gather.cu",
       "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
-      zip_counts["hash_gather"], max(r["err"] for r in gresults.values()),
-      gresults["nerf level 9, train batch"]))
-  kernels.append(entry(
+      probe_counts["hash_gather"], max(r["err"] for r in gresults.values()),
+      gresults["nerf level 9, train batch"]),
+      path="none: the fused encode replaced it on the zip paths; "
+      "launches from the probe survey"))
+  kernels.append(dict(entry(
       "hash_scatter_add", "hash_gather.cu",
       "snerf_tpu/ops/pallas/hash_gather_dense.py:91",
-      zip_counts["hash_scatter_add"],
+      probe_counts["hash_scatter_add"],
       max(r["abs_err"] for r in sresults.values()),
-      sresults["nerf level 9 (hashed)"]))
+      sresults["nerf level 9 (hashed)"]),
+      path="none: the fused encode replaced it on the zip paths; "
+      "launches from the probe survey"))
   kernels.append(entry(
       "probe_take_along_axis", "gather_probe.cu",
       "scripts/probe_gather.py:23", probe_counts["probe_take_along_axis"],
       max(r["err"] for k, r in presults.items() if k.startswith("P1")),
       presults["P1 axis 1 64x131072"]))
-  kernels.append(entry(
+  # P2: CUDA events over a graph replay (back to back they read the
+  # host), the profiler's device times and the back-to-back times beside
+  p2 = presults["P2 graph"]
+  kernels.append(dict(entry(
       "probe_gather_select", "gather_probe.cu",
       "scripts/probe_hash_ops.py:92", probe_counts["probe_gather_select"],
-      max(r["err"] for k, r in presults.items() if k.startswith("P2")),
-      presults[f"P2 8x4992 {1 << 17}"]))
+      max(r["err"] for k, r in presults.items() if k.startswith("P2")), p2),
+      **{k: p2[k] for k in ("device_ms", "library_device_ms",
+                            "back_to_back_ms", "library_back_to_back_ms")}))
   log(json.dumps({"kernels": kernels}))
   log(card)
   log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ the scene) it keeps as its own copy.
 
   ops/       math (lr schedule, grad clipping), rays, coord, mip, sampling,
              stepfun, render, lie; fused_mlp (K1, forward and backward),
-             hash_ops (K2 gather and its scatter-add backward)
+             hash_encode (K2 redesigned: the fused multi-level hash
+             encode, forward and backward), hash_ops (K2's row gather and
+             scatter-add, on no path)
   csrc/      CUDA C++ kernels for sm_90a, built at first use
   models/    NerfMLP / ProposalMLP, the mip model (eval and randomized
              training forward), LearnPose; HashEncoding and the zip

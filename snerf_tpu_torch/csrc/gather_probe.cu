@@ -18,13 +18,20 @@
 // from a small dense table, out[c, q] = tab[c, idx[c, q]], tab [C <= 8, T]
 // f32, idx int32 [C, Q]. The TPU kernel resolved each query vreg with one
 // in-vreg gather and a select per 128-row block of the VMEM-resident
-// table, at a cost that grows with T. Here each block copies the whole
-// table into shared memory (C * T * 4 bytes, up to 227 KB: T <= 7,264 at
-// C = 8, 58,112 at C = 1), then resolves its share of the queries there
-// with one shared-memory load each: no select loop, cost flat in T up to
-// the shared-memory limit. The table copy is one read per block out of
-// L2; the queries then stream: bound by the index reads and output
-// writes, 8 bytes an output.
+// table, at a cost that grows with T. Here a block takes one channel and
+// one tile of 2,048 of its queries: it copies only that channel's row of
+// the table into shared memory (T * 4 bytes, 19.5 KB at T = 4,992; up to
+// 227 KB, T <= 58,112), with float4 loads where the row is aligned, then
+// resolves its queries there with one shared-memory load each: no select
+// loop, cost flat in T up to the shared-memory limit. A thread takes 4
+// consecutive queries at a time, with one int4 index load and one float4
+// store where the rows of idx and out are 16-byte aligned. The first
+// design copied the whole [C, T] table into every block (160 KB: one
+// 1,024-thread block an SM, no gather before its copy ended) and queried
+// the device's attributes and occupancy on every call; the row a block
+// and the values cached once per device remove both. The row copies are
+// read from L2 (T * 4 bytes a block); the queries then stream: bound by
+// the index reads and output writes, 8 bytes an output.
 //
 // Indices are trusted to lie in range; both kernels copy bits, so they
 // are equal to their plain versions. Loops are grid-stride, with 64-bit
@@ -37,7 +44,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;
-constexpr int kSelectThreads = 1024;
+constexpr int kSelectThreads = 256;
+constexpr int kSelectPerThread = 8;   // two groups of 4 queries
+constexpr int kSelectTile = kSelectThreads * kSelectPerThread;
 
 // I: the offset type, 32-bit where n allows it (a 64-bit division costs
 // tens of instructions an element).
@@ -53,25 +62,83 @@ take_along_axis_kernel(const float* __restrict__ x,
   }
 }
 
+// One channel's row of tab in shared memory, then out[c, i] = row[idx[c,
+// i]] for the block's tile of queries. kVec: the rows of idx and out are
+// 16-byte aligned (q % 4 == 0 and aligned pointers).
+template <bool kVec>
 __global__ void __launch_bounds__(kSelectThreads)
 gather_select_kernel(const float* __restrict__ tab,
                      const int32_t* __restrict__ idx,
-                     float* __restrict__ out, int c, int t, long long q) {
-  extern __shared__ float smem[];
-  const int n_tab = c * t;
-  for (int i = threadIdx.x; i < n_tab; i += kSelectThreads)
-    smem[i] = __ldg(tab + i);
+                     float* __restrict__ out, int t, long long q) {
+  extern __shared__ float row[];
+  const int ch = blockIdx.y;
+  const float* src = tab + (long long)ch * t;
+  int start = 0;
+  if (((uintptr_t)src & 15) == 0) {
+    start = t & ~3;
+    for (int i = threadIdx.x; i < start / 4; i += kSelectThreads)
+      reinterpret_cast<float4*>(row)[i] =
+          __ldg(reinterpret_cast<const float4*>(src) + i);
+  }
+  for (int i = start + threadIdx.x; i < t; i += kSelectThreads)
+    row[i] = __ldg(src + i);
   __syncthreads();
-  for (long long i = (long long)blockIdx.x * kSelectThreads + threadIdx.x;
-       i < q; i += (long long)gridDim.x * kSelectThreads) {
-    for (int ch = 0; ch < c; ++ch)
-      out[ch * q + i] = smem[ch * t + __ldg(idx + ch * q + i)];
+  const int32_t* ip = idx + (long long)ch * q;
+  float* op = out + (long long)ch * q;
+#pragma unroll
+  for (int r = 0; r < kSelectPerThread / 4; ++r) {
+    const long long i = (long long)blockIdx.x * kSelectTile +
+                        (long long)(r * kSelectThreads + threadIdx.x) * 4;
+    if (kVec && i + 4 <= q) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(ip + i));
+      *reinterpret_cast<float4*>(op + i) =
+          make_float4(row[v.x], row[v.y], row[v.z], row[v.w]);
+    } else {
+      for (long long j = i; j < i + 4 && j < q; ++j) op[j] = row[__ldg(ip + j)];
+    }
   }
 }
 
-int sm_count(int device, int* sms) {
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                     device);
+constexpr int kMaxDevices = 64;
+
+// The device's SM count, cached (0 on failure).
+int sm_count(int device) {
+  static int sms[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    sms[device] = 0;
+  return sms[device];
+}
+
+// The most shared memory a block may opt into on `device`, cached; the
+// select kernels are opened up to it once (0 on failure).
+int select_smem_bytes(int device) {
+  static int bytes[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return 0;
+  if (bytes[device] == 0) {
+    int b = 0;
+    if (cudaDeviceGetAttribute(&b, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device) != cudaSuccess ||
+        cudaFuncSetAttribute(gather_select_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             b) != cudaSuccess ||
+        cudaFuncSetAttribute(gather_select_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             b) != cudaSuccess)
+      return 0;
+    bytes[device] = b;
+  }
+  return bytes[device];
+}
+
+// cudaSetDevice only when another device is current.
+cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess || cur == device) return err;
+  return cudaSetDevice(device);
 }
 
 }  // namespace
@@ -85,14 +152,13 @@ extern "C" {
 int snerf_take_along_axis(const void* x, const void* idx, void* out,
                           long long s, long long l, int axis, int device,
                           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (axis != 0 && axis != 1) return (int)cudaErrorInvalidValue;
   const long long n = s * l;
   if (n <= 0) return 0;
-  int sms = 0;
-  int e = sm_count(device, &sms);
-  if (e != 0) return e;
+  const int sms = sm_count(device);
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > (long long)sms * kBlocksPerSM) blocks = (long long)sms *
                                                        kBlocksPerSM;
@@ -110,44 +176,33 @@ int snerf_take_along_axis(const void* x, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// The most table floats (c * t) one block can hold in shared memory.
+// The most table floats of one channel (t) a block can hold in shared
+// memory.
 int snerf_gather_select_max_floats(int device) {
-  int bytes = 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
-  return bytes / (int)sizeof(float);
+  return select_smem_bytes(device) / (int)sizeof(float);
 }
 
 // tab [c, t] f32, idx [c, q] int32 with values in [0, t), out [c, q] f32,
-// contiguous, on `device`, c * t * 4 bytes within the opt-in shared
-// memory of a block. Returns the cudaError_t of the launch.
+// contiguous, on `device`, t * 4 bytes within the opt-in shared memory of
+// a block. Returns the cudaError_t of the launch.
 int snerf_gather_select(const void* tab, const void* idx, void* out, int c,
                         int t, long long q, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (c <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || c > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
   if (q <= 0) return 0;
-  const size_t smem = (size_t)c * t * sizeof(float);
-  err = cudaFuncSetAttribute(gather_select_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  int e = sm_count(device, &sms);
-  if (e != 0) return e;
-  // every block copies the table once: as many blocks as fit the SMs
-  long long blocks = (q + kSelectThreads - 1) / kSelectThreads;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gather_select_kernel, kSelectThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > cap) blocks = cap;
-  gather_select_kernel<<<(unsigned)blocks, kSelectThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = (size_t)t * sizeof(float);
+  const int max_bytes = select_smem_bytes(device);
+  if (max_bytes == 0) return (int)cudaErrorInvalidDevice;
+  if (smem > (size_t)max_bytes) return (int)cudaErrorInvalidValue;
+  const long long tiles = (q + kSelectTile - 1) / kSelectTile;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)c);
+  const bool vec = q % 4 == 0 && ((uintptr_t)idx | (uintptr_t)out) % 16 == 0;
+  auto kernel = vec ? gather_select_kernel<true> : gather_select_kernel<false>;
+  kernel<<<grid, kSelectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<float*>(out), c, t, q);
+      static_cast<float*>(out), t, q);
   return (int)cudaGetLastError();
 }
 

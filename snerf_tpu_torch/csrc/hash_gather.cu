@@ -68,6 +68,10 @@
 // Atomics add in a different order on every run, in both variants, so dT
 // differs from run to run in its last bits; it is checked against an f64
 // index_add_ control with a tolerance, never for bit-equality.
+//
+// No model path launches these kernels any more: the hash encoder runs
+// the fused multi-level encode (hash_encode.cu), which gathers and
+// scatters every level inside one kernel each way with the designs above.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -2,39 +2,33 @@
 snerf_tpu/models/hashgrid.py), and its hash-decay regulariser.
 
 The level layout, the xor-prime hash and the dense stride indexing are
-the JAX module's, bit for bit. The table is split once into its levels
-(one `torch.split`), and each level's rows are fetched from its own slice
-with level-local indices by one row gather (`ops/hash_ops.gather_rows`,
-kernel K2 on the GPU), the same kernel for dense and hashed levels. When
-the table requires grad, the gather's backward is one scatter-add per
-level (the scatter-add kernel on the GPU) into a gradient of that level's
-rows only, and the split's backward writes the table's gradient once.
-
-What the backward keeps: the JAX encoder recomputes each level's indices
-and weights under `jax.checkpoint`; here autograd keeps them, the [N, 8]
-int32 indices (in the gather) and the [N, 8] trilinear weights (in the
-blend), 64 bytes a point and level, and never the gathered rows. That
-fits the card at the shipped batch (PERF.md), so nothing is recomputed.
-When the positions carry grad (pose refinement), the blend also keeps the
-rows and the grad reaches the positions through the weights.
-`total_variation_loss` is not ported yet.
+the JAX module's, bit for bit. `hash_encode` runs the fused multi-level
+encode (`ops/hash_encode.py` `HashEncodeFunction`: on the GPU one kernel
+launch for every level forward and one backward, kernel K2 redesigned):
+indices, trilinear weights, row gather and blend of all levels in
+registers, the backward recomputing them from the positions as the JAX
+encoder does under `jax.checkpoint`, so autograd keeps only x, never an
+[N, 8] tensor. It adds w * g into one zeroed gradient of the whole table,
+and gives the positions' gradient through the weights when they need it
+(pose refinement). `hash_encode_plain` is the per-level plain version
+(`hash_encode_fwd_plain` under autograd: PyTorch ops and `table[idx]`),
+which only a kernel check needs. `total_variation_loss` is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable
 
 import numpy as np
 import torch
 from torch import nn
 
-from snerf_tpu_torch.ops.hash_ops import gather_rows
+from snerf_tpu_torch.ops.hash_encode import (HashEncodeFunction,
+                                             hash_encode_fwd_plain)
 
-GatherFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-_PRIMES = (1, 2654435761, 805459861)
-_U32 = 0xFFFFFFFF
+EncodeFn = Callable[..., torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,92 +75,40 @@ def make_grid_spec(num_levels: int = 10,
                   tuple(offsets), level_dim)
 
 
-@functools.lru_cache(maxsize=None)
-def _const(values: tuple, device: torch.device) -> torch.Tensor:
-  """An int64 constant on `device`, made once: a fresh host-to-device copy
-  in every level would stall the host on the device."""
-  return torch.tensor(values, device=device)
-
-
-def _corner_product(a: torch.Tensor, op) -> torch.Tensor:
-  """Per-axis values a [N, 2, 3] -> [N, 8] combined over the 8 cell
-  corners (i, j, k), corner index i*4 + j*2 + k, as `op(op(x_i, y_j),
-  z_k)`: the JAX module's corner order."""
-  x = a[:, :, None, None, 0]
-  y = a[:, None, :, None, 1]
-  z = a[:, None, None, :, 2]
-  return op(op(x, y), z).reshape(a.shape[0], 8)
-
-
-def _level_indices(c0: torch.Tensor, resolution: int, size: int):
-  """Level-local row indices [N, 8] of the 8 corners of the cells whose
-  low corner is c0 [N, 3] (int64).
-
-  Dense stride indexing when the (res+1)^3 grid fits the table, else the
-  xor-prime hash in uint32 arithmetic: each product is reduced mod 2^32
-  (exact in int64 for |corner| < 2^33), then xor, then mod size. The
-  per-axis terms are computed once and combined over the corners.
-  """
-  corners = c0[:, None, :] + _const(((0,), (1,)), c0.device)  # [N, 2, 3]
-  r = resolution + 1
-  if r ** 3 <= size:
-    stride = _const((1, r, r * r), c0.device)
-    return _corner_product(corners * stride, torch.add) % size
-  h = _corner_product((corners * _const(_PRIMES, c0.device)) & _U32,
-                      torch.bitwise_xor)
-  return h % size
-
-
-def _level_rows_weights(xf: torch.Tensor, spec: GridSpec, lvl: int):
-  """(level-local row indices [N, 8] int32, trilinear weights [N, 8]) for
-  one level; the JAX module's table rows are these plus offsets[lvl]."""
-  pos = xf * spec.scales[lvl] + 0.5
-  c0 = torch.floor(pos)
-  frac = pos - c0
-  idx = _level_indices(c0.long(), spec.resolutions[lvl], spec.sizes[lvl])
-  w = _corner_product(torch.stack([1.0 - frac, frac], dim=1), torch.mul)
-  return idx.int(), w
-
-
-def hash_encode_level(xf: torch.Tensor, level_table: torch.Tensor,
-                      spec: GridSpec, lvl: int,
-                      gather_fn: GatherFn = gather_rows):
-  """Trilinear features of ONE level for flat x [N, 3] in [0, 1]^3, from
-  that level's rows level_table [sizes[lvl], C]."""
-  idx, w = _level_rows_weights(xf, spec, lvl)
-  rows = gather_fn(level_table, idx)                         # [N, 8, C]
-  return (w[..., None] * rows).sum(dim=1)
-
-
-def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: GridSpec,
-                gather_fn: GatherFn = gather_rows):
-  """Encode x in [0, 1]^3 -> per-level features.
+def hash_encode(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
+  """Encode x in [0, 1]^3 -> per-level features, by the fused encode.
 
   x: [..., 3]; table: [total_rows, level_dim]. Returns [..., num_levels,
-  level_dim]; inputs outside [0, 1] give zeros.
+  level_dim]; inputs outside [0, 1] give zeros. Differentiable in the
+  table and in x.
   """
   batch_shape = x.shape[:-1]
-  xf = x.reshape(-1, 3)
-  oob = torch.any((xf < 0) | (xf > 1), dim=-1)
-  levels = torch.split(table, list(spec.sizes))
-  out = torch.stack([hash_encode_level(xf, levels[lvl], spec, lvl, gather_fn)
-                     for lvl in range(spec.num_levels)], dim=-2)
-  out = torch.where(oob[:, None, None], 0.0, out)
+  out = HashEncodeFunction.apply(x.reshape(-1, 3).contiguous(), table, spec)
+  return out.reshape(*batch_shape, spec.num_levels, spec.level_dim)
+
+
+def hash_encode_plain(x: torch.Tensor, table: torch.Tensor, spec: GridSpec):
+  """`hash_encode` by the per-level plain version and PyTorch's autograd:
+  the same features bit for bit, a table gradient summed in another
+  order."""
+  batch_shape = x.shape[:-1]
+  out = hash_encode_fwd_plain(x.reshape(-1, 3), table, spec)
   return out.reshape(*batch_shape, spec.num_levels, spec.level_dim)
 
 
 class HashEncoding(nn.Module):
   """Owns the table `embeddings` [total_rows, level_dim] (the reference
-  GridEncoder's parameter name)."""
+  GridEncoder's parameter name) and encodes with `encode_fn`
+  (`hash_encode` or `hash_encode_plain`)."""
 
   def __init__(self, num_levels: int = 10, level_dim: int = 4,
                base_resolution: int = 16, desired_resolution: int = 8192,
                log2_hashmap_size: int = 21, init_std: float = 1e-4,
-               gather_fn: GatherFn = gather_rows, device="cuda"):
+               encode_fn: EncodeFn = hash_encode, device="cuda"):
     super().__init__()
     self.spec = make_grid_spec(num_levels, level_dim, base_resolution,
                                desired_resolution, log2_hashmap_size)
-    self.gather_fn = gather_fn
+    self.encode_fn = encode_fn
     self.embeddings = nn.Parameter(torch.empty(
         self.spec.total_rows, level_dim, device=device).uniform_(
             -init_std, init_std))
@@ -178,7 +120,7 @@ class HashEncoding(nn.Module):
                      device=device) + 1.0, persistent=False)
 
   def forward(self, x):
-    return hash_encode(x, self.embeddings, self.spec, self.gather_fn)
+    return self.encode_fn(x, self.embeddings, self.spec)
 
 
 def hash_decay_loss(table: torch.Tensor, spec: GridSpec,

@@ -31,9 +31,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from snerf_tpu_torch.models.hashgrid import GatherFn, HashEncoding
+from snerf_tpu_torch.models.hashgrid import EncodeFn, HashEncoding, hash_encode
 from snerf_tpu_torch.ops import coord, mip, render, stepfun
-from snerf_tpu_torch.ops.hash_ops import gather_rows
 from snerf_tpu_torch.ops.rays import Rays
 
 
@@ -150,7 +149,7 @@ class ZipMLP(nn.Module):
 
   def __init__(self, config: ZipNerfConfig, grid_resolution: int,
                grid_level_dim: int, disable_rgb: bool = False,
-               gather_fn: GatherFn = gather_rows, device="cuda"):
+               encode_fn: EncodeFn = hash_encode, device="cuda"):
     super().__init__()
     c = self.config = config
     self.disable_rgb = disable_rgb
@@ -158,7 +157,7 @@ class ZipMLP(nn.Module):
         num_levels=c.grid_num_levels, level_dim=grid_level_dim,
         base_resolution=c.grid_base_resolution,
         desired_resolution=grid_resolution,
-        log2_hashmap_size=c.grid_log2_hashmap_size, gather_fn=gather_fn,
+        log2_hashmap_size=c.grid_log2_hashmap_size, encode_fn=encode_fn,
         device=device)
     out_width = 1 if disable_rgb else c.bottleneck_width
     enc_width = c.grid_num_levels * grid_level_dim
@@ -237,12 +236,13 @@ class ZipMLP(nn.Module):
 class ZipNerfModel(nn.Module):
   """The 3-level proposal hierarchy: 2 proposal MLPs and the nerf MLP.
 
-  gather_fn fetches the hash-table rows of every level; the default is
-  kernel K2. Passing `gather_rows_plain` builds the same model with plain
-  PyTorch indexing, which only a kernel check needs.
+  encode_fn hash-encodes the positions of every MLP; the default is the
+  fused encode (`hashgrid.hash_encode`). Passing `hashgrid.hash_encode_plain`
+  builds the same model with the per-level plain encode, which only a
+  kernel check needs.
   """
 
-  def __init__(self, config: ZipNerfConfig, gather_fn: GatherFn = gather_rows,
+  def __init__(self, config: ZipNerfConfig, encode_fn: EncodeFn = hash_encode,
                device="cuda"):
     super().__init__()
     c = self.config = config
@@ -250,9 +250,9 @@ class ZipNerfModel(nn.Module):
       res = c.prop_grid_resolutions[min(i, len(c.prop_grid_resolutions) - 1)]
       setattr(self, f"prop_mlp_{i}", ZipMLP(
           c, res, c.prop_grid_level_dim, disable_rgb=True,
-          gather_fn=gather_fn, device=device))
+          encode_fn=encode_fn, device=device))
     self.nerf_mlp = ZipMLP(c, c.nerf_grid_resolution, c.nerf_grid_level_dim,
-                           gather_fn=gather_fn, device=device)
+                           encode_fn=encode_fn, device=device)
 
   def mlps(self) -> List[ZipMLP]:
     return [getattr(self, f"prop_mlp_{i}")

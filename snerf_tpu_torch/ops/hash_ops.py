@@ -15,6 +15,12 @@ copy for the coarse one-channel levels, warp aggregation for the rest),
 `scatter_add_rows_plain` (`index_add_`) for CPU tensors. Only the int32
 indices are saved for the backward, never the gathered rows. The kernels
 are built and loaded by `ops/_cuda.py`.
+
+No model path runs them: the hash encoder runs the fused multi-level
+encode (`ops/hash_encode.py`), which does the gather and the scatter-add
+of every level inside one kernel each way and takes `scatter_variant`
+for its backward. They stay as the literal counterparts of the Pallas
+kernel and its VJP, held against their plain versions on the card.
 """
 
 from __future__ import annotations

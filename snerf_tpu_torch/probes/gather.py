@@ -4,8 +4,9 @@ behind kernel K2 and its scatter-add.
 P1 (`take_along_axis`, counterpart of scripts/probe_gather.py `run` with
 `kernel_lane` / `kernel_sub`) gathers along the last or the first axis of
 a 2-D array; P2 (`gather_select`, counterpart of scripts/probe_hash_ops.py
-`f7` with `kern`) gathers from a small dense [C, T] table held in shared
-memory, each channel row with its own indices. Both launch the
+`f7` with `kern`) gathers from a small dense [C, T] table, each channel
+row with its own indices, a block staging only its channel's row in
+shared memory. Both launch the
 hand-written kernels in `snerf_tpu_torch/csrc/gather_probe.cu` for CUDA
 tensors and run their plain PyTorch versions (`torch.take_along_dim`,
 `Tensor.gather`) for CPU tensors; each wrapper counts its launches.
@@ -17,9 +18,11 @@ kernel against `index_add_` on random and on sorted indices; `torch.sort`
 and `torch.argsort` of 4 M int32; P1 by axis and width; P2 on the
 [8, 4,992] table with 2^20 queries; and the dense-table crossover, the
 table size at which P2's shared-memory gather stops beating K2's row
-gather. Run it on a card:
+gather. `p2_times` times P2 against `Tensor.gather` at that shape by CUDA
+events and by the profiler's device time. Run them on a card:
 
-  python -m snerf_tpu_torch.probes.gather
+  python -m snerf_tpu_torch.probes.gather          # the survey
+  python -m snerf_tpu_torch.probes.gather --p2     # P2 alone
 """
 
 from __future__ import annotations
@@ -105,17 +108,22 @@ def gather_select_plain(tab, idx):
   return tab.gather(1, idx.long())
 
 
+_max_floats: Dict[int, int] = {}
+
+
 def gather_select_max_floats(device=None) -> int:
-  """The most table entries (C * T) the P2 kernel can hold in a block's
-  shared memory on `device`."""
+  """The most table entries of one channel (T) the P2 kernel can hold in a
+  block's shared memory on `device` (read once per device)."""
   dev = torch.device("cuda" if device is None else device)
-  return _lib().snerf_gather_select_max_floats(
-      dev.index if dev.index is not None else torch.cuda.current_device())
+  index = dev.index if dev.index is not None else torch.cuda.current_device()
+  if index not in _max_floats:
+    _max_floats[index] = _lib().snerf_gather_select_max_floats(index)
+  return _max_floats[index]
 
 
 def gather_select(tab, idx):
-  """P2: out[c, q] = tab[c, idx[c, q]] for tab float32 [C, T] (C * T
-  within `gather_select_max_floats`) and idx int32 [C, Q] with every value
+  """P2: out[c, q] = tab[c, idx[c, q]] for tab float32 [C, T] (T within
+  `gather_select_max_floats`) and idx int32 [C, Q] with every value
   in [0, T) (not checked). CPU tensors run `gather_select_plain`, CUDA
   tensors the kernel; `gather_select.launches` counts its launches."""
   _check(tab, idx, "gather_select")
@@ -124,9 +132,9 @@ def gather_select(tab, idx):
                      f"{tuple(idx.shape)} need the same channel count")
   if not _on_cuda("gather_select", tab, idx):
     return gather_select_plain(tab, idx)
-  if tab.numel() > gather_select_max_floats(tab.device):
-    raise ValueError(f"gather_select: a {tuple(tab.shape)} table does not "
-                     "fit a block's shared memory")
+  if tab.shape[1] > gather_select_max_floats(tab.device):
+    raise ValueError(f"gather_select: a row of a {tuple(tab.shape)} table "
+                     "does not fit a block's shared memory")
   out = torch.empty(idx.shape, dtype=tab.dtype, device=tab.device)
   lib = _lib()
   err = lib.snerf_gather_select(
@@ -154,6 +162,83 @@ def time_ms(fn, iters: int) -> float:
   stop.record()
   torch.cuda.synchronize()
   return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int):
+  """Mean device time of one call of fn in ms: the kernels torch.profiler
+  records over `iters` calls after one warm-up; None when it records no
+  device time."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  us = sum(e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False))
+  return us / 1e3 / iters if us > 0 else None
+
+
+def graph_ms(fn, iters: int) -> float:
+  """Mean ms per call of fn by CUDA events around one replay of a CUDA
+  graph that holds `iters` calls: the launches follow each other with no
+  host time between them, as in a steady stream of work."""
+  fn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(iters):
+      fn()
+  graph.replay()
+  start = torch.cuda.Event(enable_timing=True)
+  stop = torch.cuda.Event(enable_timing=True)
+  start.record()
+  graph.replay()
+  stop.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(stop) / iters
+
+
+def p2_times(log=print, iters: int = 50, device="cuda") -> dict:
+  """P2 against `Tensor.gather` at probe_hash_ops.py's shape, a [8, 4,992]
+  table and [8, 2^17] indices: bit-equal; CUDA-event times of back-to-back
+  calls in turns (gather, P2, P2, gather), where each call's host time
+  shows; CUDA-event times over a CUDA-graph replay of the calls (no host
+  time between launches), in turns; and each one's device time under
+  torch.profiler. Returns {"ms", "gather_ms" (back to back), "graph_ms",
+  "gather_graph_ms", "device_ms", "gather_device_ms", "equal"}."""
+  gen = torch.Generator(device=device).manual_seed(7)
+  tab = torch.randn(8, 4992, generator=gen, device=device)
+  idx = torch.randint(0, 4992, (8, 1 << 17), generator=gen, device=device,
+                      dtype=torch.int32)
+  idx_l = idx.long()
+  equal = torch.equal(gather_select(tab, idx), tab.gather(1, idx_l))
+
+  def p2():
+    return gather_select(tab, idx)
+
+  def gather():
+    return tab.gather(1, idx_l)
+
+  g1, k1, k2, g2 = (time_ms(f, iters) for f in (gather, p2, p2, gather))
+  gg1, gk1, gk2, gg2 = (graph_ms(f, iters) for f in (gather, p2, p2, gather))
+  res = dict(ms=(k1 + k2) / 2, gather_ms=(g1 + g2) / 2,
+             graph_ms=(gk1 + gk2) / 2, gather_graph_ms=(gg1 + gg2) / 2,
+             device_ms=device_ms(p2, iters),
+             gather_device_ms=device_ms(gather, iters), equal=equal)
+  fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+  log(f"P2 gather_select [8x4992 table, 8x{1 << 17} idx]: bit-equal "
+      f"{equal}; CUDA events, back to back {res['ms']:.4f} ms against "
+      f"Tensor.gather {res['gather_ms']:.4f} ms [{k1:.4f}/{k2:.4f} vs "
+      f"{g1:.4f}/{g2:.4f}], over a graph replay {res['graph_ms']:.4f} ms "
+      f"against {res['gather_graph_ms']:.4f} ms [{gk1:.4f}/{gk2:.4f} vs "
+      f"{gg1:.4f}/{gg2:.4f}]; profiler device time "
+      f"{fmt(res['device_ms'])} against {fmt(res['gather_device_ms'])}")
+  return res
 
 
 def _line(name, shape, ms, n, bytes_, plain=None):
@@ -242,11 +327,12 @@ def survey(log=print, iters: int = 20, device="cuda") -> Dict[str, dict]:
       plain=time_ms(lambda: tab.gather(1, qil), iters))
 
   # 6. the dense-table crossover: per-channel queries into a [C, T] table
-  # in shared memory (P2) against K2's row gather from [T, C] with one
-  # index a query; 4 M queries, C = 1 (proposal) and 4 (nerf)
+  # (P2, a channel's row in shared memory) against K2's row gather from
+  # [T, C] with one index a query; 4 M queries, C = 1 (proposal) and 4
+  # (nerf)
   nq = 1 << 22
+  t_max = gather_select_max_floats()
   for c in (1, 4):
-    t_max = gather_select_max_floats() // c
     cross = None
     sizes = [t for t in (1024, 4913, 8192, 16384, 32768) if t < t_max] + [
         t_max]
@@ -283,12 +369,14 @@ def card_line() -> str:
 
 
 def main(argv: List[str]) -> int:
-  del argv
   if not torch.cuda.is_available():
     print("the gather probes need a CUDA card", file=sys.stderr)
     return 1
   print(card_line(), flush=True)
-  survey(log=lambda s: print(s, flush=True))
+  if "--p2" in argv:
+    p2_times(log=lambda s: print(s, flush=True))
+  else:
+    survey(log=lambda s: print(s, flush=True))
   return 0
 
 

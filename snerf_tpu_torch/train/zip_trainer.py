@@ -6,10 +6,10 @@ device (random pixels, then the patch quarter), run the randomized zip
 forward, sum the loss set (Charbonnier data, anti-aliased interlevel,
 distortion, hash decay, inverse depth with depth completion on masked
 pixels, semantic NLL, the two edge-aware patch smoothness terms),
-backpropagate (through K2's scatter-add kernel on the card), scrub and
-clip the grads, and apply Adam to the model (log-lerp schedule, the
-encoder tables in their own param group) and SGD to the poses inside
-their window, then the optional EMA. The JAX step is one jitted
+backpropagate (through the fused hash encode's backward on the card),
+scrub and clip the grads, and apply Adam to the model (log-lerp
+schedule, the encoder tables in their own param group) and SGD to the
+poses inside their window, then the optional EMA. The JAX step is one jitted
 function of a PRNG key; here the step runs eagerly and its random draws
 come from a torch.Generator or are injected (`ZipStepDraws`).
 

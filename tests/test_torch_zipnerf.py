@@ -34,7 +34,7 @@ from snerf_tpu_torch import config as tconfig
 from snerf_tpu_torch.data import raygen, synthetic
 from snerf_tpu_torch.models import hashgrid
 from snerf_tpu_torch.models.zipnerf import ZipNerfConfig, ZipNerfModel
-from snerf_tpu_torch.ops.hash_ops import gather_rows_plain
+from snerf_tpu_torch.ops import hash_encode
 from snerf_tpu_torch.ops.rays import Rays
 from snerf_tpu_torch.train import renderer
 from snerf_tpu_torch.utils.weights import zip_init_, zip_state_dict_from_flax
@@ -104,12 +104,12 @@ def test_level_indices_equal_jax(lvl):
   c0[:2] = [[-1, -2, -3], [2 ** 20, -(2 ** 20), 7]]
   want = jhashgrid._level_indices(
       jnp.asarray(c0)[:, None, :] + jhashgrid._CORNERS[None], res, size)
-  got = hashgrid._level_indices(torch.from_numpy(c0).long(), res, size)
+  got = hash_encode.level_indices(torch.from_numpy(c0).long(), res, size)
   np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
   x = rng.uniform(0, 1, (500, 3)).astype(np.float32)
   jidx, jw = jhashgrid._level_rows_weights(jnp.asarray(x), spec, lvl)
-  idx, w = hashgrid._level_rows_weights(torch.from_numpy(x), spec, lvl)
+  idx, w = hash_encode.level_rows_weights(torch.from_numpy(x), spec, lvl)
   assert idx.dtype == torch.int32
   np.testing.assert_array_equal(idx.numpy() + spec.offsets[lvl],
                                 np.asarray(jidx))
@@ -271,8 +271,8 @@ def test_render_image_parity_on_synthetic_view():
   assert got["rgb"].shape == (8, 8, 3) and got["distance"].shape == (8, 8, 1)
   assert got["semantic"].shape == (8, 8, 5)
   _assert_render_close(got, want)
-  # a model whose gathers run the plain version renders the same bits
-  plain = ZipNerfModel(tmodel.config, gather_fn=gather_rows_plain,
+  # a model whose encoders run the plain version renders the same bits
+  plain = ZipNerfModel(tmodel.config, encode_fn=hashgrid.hash_encode_plain,
                        device="cpu")
   plain.load_state_dict(tmodel.state_dict())
   again = renderer.render_image(renderer.make_zip_eval_render_fn(plain),
