@@ -14,12 +14,21 @@ the scene) it keeps as its own copy.
   models/    NerfMLP / ProposalMLP, the mip model (eval and randomized
              training forward), LearnPose; HashEncoding and the zip
              model (hash arm, eval and randomized training forward)
-  data/      pinhole ray generation, Scene, the synthetic scene, the
-             training-batch sampler
+  data/      pinhole ray generation, Scene, the nuScenes loader, camera
+             paths, the synthetic scene, the training-batch sampler; png
+             (PNG read/write and cv2's bilinear resize, no imageio/cv2)
   train/     chunked image rendering; the mip and zip loss sets and train
-             steps
+             steps; checkpoints
+  cli/       the entry points: python -m snerf_tpu_torch.cli.train|eval|
+             render (train.py's, eval.py's and render.py's flags, plus
+             --device)
   probes/    the gather probes (P1, P2) and the primitive survey
-  utils/     flax -> torch weight bridges, seeded inits
-  flags.py   the flag dataclass and its config-file / CLI parser
+  utils/     flax -> torch weight bridges, seeded inits; metrics; the
+             experiment logger; the profile window
+  flags.py   the flag dataclass, its config-file / CLI parser, the
+             experiment snapshot
   config.py  model and train configs from flags.Config
+  bench.py, bench_quality.py
+             the throughput line and the held-out quality cells (card
+             only)
 """

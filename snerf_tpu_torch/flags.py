@@ -4,7 +4,10 @@ copy of what it needs from snerf_tpu/config.py.
 `Config` has every field and default of the JAX package's; `load_config`
 reads a `--config <file>` (reference-style `key = value` text, YAML or a
 zipnerf .gin) and then `--key value` overrides, with the same aliases and
-ignored legacy flags. The JAX module's adapter methods (`model_config`,
+ignored legacy flags. `snapshot_config` writes the resolved flags into
+the experiment directory at train time and `load_config_with_snapshot`
+rebuilds them from there for eval and render. The JAX module's adapter
+methods (`model_config`,
 `train_config`, `zip_model_config`, `zip_train_config`) import JAX and
 are left out: `snerf_tpu_torch/config.py` has the port's counterparts.
 `tests/test_torch_flags.py` holds the two parsers equal on every file in
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import os
 from typing import Any, List, Optional
 
 
@@ -188,6 +192,9 @@ class Config:
   ckpt: int = -1                   # -1 = latest
   test_refine_iter: int = 0
 
+  def exp_dir(self) -> str:
+    return os.path.join(self.basedir, self.expname)
+
 
 def _coerce(value: str) -> Any:
   """Parse a config-file / CLI value string into a python value."""
@@ -327,3 +334,48 @@ def load_config(argv: Optional[List[str]] = None,
   cfg = Config(**kwargs)
   cfg.config = known.config
   return cfg
+
+
+def load_config_with_snapshot(argv=None) -> Config:
+  """load_config, but based on the experiment's args.txt snapshot
+  (written by snapshot_config at train time) when one exists.
+
+  Eval/render must rebuild the exact train-time state structure (e.g.
+  --hidden_layer changes every weight shape); the snapshot is the fully
+  resolved train-time config, so it outranks the --config file (which
+  the first pass only uses to locate basedir/expname). Priority: fresh
+  CLI flags > snapshot > --config file > defaults.
+  """
+  cfg = load_config(argv)
+  snap = os.path.join(cfg.exp_dir(), "args.txt")
+  if os.path.exists(snap):
+    # re-parse with the snapshot as the base and without the --config
+    # file (its contents are already inside the snapshot)
+    rest = []
+    args = list(argv) if argv is not None else []
+    i = 0
+    while i < len(args):
+      if args[i] == "--config":
+        i += 2
+        continue
+      if args[i].startswith("--config="):
+        i += 1
+        continue
+      rest.append(args[i])
+      i += 1
+    cfg = load_config(rest, defaults=parse_config_file(snap))
+  return cfg
+
+
+def snapshot_config(cfg: Config):
+  """Dump the resolved config and the original file into the experiment
+  dir (reference model_utils.py:72-81: args.txt + config.txt)."""
+  exp = cfg.exp_dir()
+  os.makedirs(exp, exist_ok=True)
+  with open(os.path.join(exp, "args.txt"), "w") as f:
+    for field in sorted(dataclasses.fields(Config), key=lambda x: x.name):
+      f.write(f"{field.name} = {getattr(cfg, field.name)}\n")
+  if cfg.config and os.path.exists(cfg.config):
+    with open(cfg.config) as src, \
+         open(os.path.join(exp, "config.txt"), "w") as dst:
+      dst.write(src.read())

@@ -28,6 +28,7 @@ model does not predict (a multiplier > 0 raises).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
@@ -121,6 +122,29 @@ class ZipStepDraws:
   py: torch.Tensor
   px: torch.Tensor
   model: Optional[ZipDraws] = None
+
+
+@contextlib.contextmanager
+def eval_weights(state):
+  """The weights to render and evaluate with (the JAX `eval_params`): the
+  EMA copy when maintained, swapped into the model for the duration of
+  the block and swapped back after it. Any train state (a mip TrainState
+  too)."""
+  if state.ema is None:
+    yield state.model
+    return
+  params = dict(state.model.named_parameters())
+
+  def swap():
+    with torch.no_grad():
+      for name, e in state.ema.items():
+        params[name].data, state.ema[name] = e, params[name].data
+
+  swap()
+  try:
+    yield state.model
+  finally:
+    swap()
 
 
 def make_zip_lr_schedule(cfg: ZipTrainConfig):

@@ -1,0 +1,179 @@
+"""The port's entry points (snerf_tpu_torch/cli/) end to end on the CPU.
+
+- cli.train -> cli.eval -> cli.render on configs/synthetic_tiny and on
+  the realfocal fixture with configs/nuScenes_depth_6cams, at narrow
+  widths, `--device cpu`: checkpoints, the resume, the snapshot, every
+  output file of eval.py and render.py, a falling loss; the zip model
+  likewise; the profile window.
+- What has no port yet raises, and without a card the entry points
+  raise instead of running on the CPU.
+
+tests/test_torch_cli_parity.py holds cli.eval against the JAX package on
+the same weights.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from snerf_tpu_torch.cli import common
+from snerf_tpu_torch.cli import eval as cli_eval
+from snerf_tpu_torch.cli import render as cli_render
+from snerf_tpu_torch.cli import train as cli_train
+from snerf_tpu_torch.data.png import read_png
+from snerf_tpu_torch.flags import load_config
+from snerf_tpu_torch.train import checkpoints as ckpt_lib
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = os.path.join(REPO, "configs", "synthetic_tiny")
+FIXTURE = os.path.join(REPO, "tests", "fixtures", "nuscenes_realfocal")
+MIP_NARROW = ["--N_samples", "8", "--N_fine", "8", "--hidden_layer", "16",
+              "--proposal_hidden_layer", "16"]
+ZIP_NARROW = ["--model", "zipnerf", "--zip_batch_size", "64",
+              "--zip_num_prop_samples", "(4, 4)",
+              "--zip_num_nerf_samples", "4", "--zip_sample_n", "2",
+              "--zip_grid_num_levels", "3", "--zip_log2_hashmap_size", "10",
+              "--zip_bottleneck_width", "16",
+              "--zip_prop_grid_resolutions", "(32, 64)",
+              "--zip_nerf_grid_resolution", "128",
+              "--zip_compute_dtype", "float32", "--zip_lr_delay", "0"]
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+  """jsonl logging only: importing TensorBoard here pulls in TensorFlow
+  (~20 s); the logger's TensorBoard branch is the JAX logger's."""
+  monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+
+def _log(exp):
+  with open(os.path.join(exp, "train_log.jsonl")) as f:
+    return [json.loads(line) for line in f]
+
+
+def test_mip_train_resume_eval_render_synthetic(tmp_path):
+  base = str(tmp_path)
+  flags = ["--config", TINY, "--basedir", base, *MIP_NARROW,
+           "--i_weights", "10", "--i_print", "10", "--i_testset", "10"]
+  args = flags + CPU
+  state = cli_train.main(args + ["--N_iters", "20"])
+  exp = os.path.join(base, "synthetic_tiny")
+  ckpt_dir = os.path.join(exp, "checkpoints")
+  assert state.step == 20 and ckpt_lib.latest_step(ckpt_dir) == 20
+  assert os.path.isfile(os.path.join(exp, "args.txt"))
+  saved = ckpt_lib.state_payload(state)
+  # the resume restores step 20 exactly and trains on to 30
+  state = cli_train.main(args + ["--N_iters", "30"])
+  assert state.step == 30
+  fresh = common.build_model_state(load_config(flags), 12, "cpu")[1]
+  fresh, got = ckpt_lib.restore_checkpoint(ckpt_dir, fresh, step=20)
+  assert got == 20
+  for k, v in ckpt_lib.state_payload(fresh)["model"].items():
+    assert torch.equal(v, saved["model"][k]), k
+  logged = _log(exp)
+  losses = [e["loss"] for e in logged if "loss" in e]
+  assert [e["step"] for e in logged if "loss" in e] == [10, 20, 30]
+  assert losses[-1] < losses[0]
+  assert len([e for e in logged if "test_psnr" in e]) == 3
+
+  summary = cli_eval.main(["--config", TINY, "--basedir", base, *CPU])
+  out = os.path.join(exp, "testset_000030")
+  with open(os.path.join(out, "metrics.json")) as f:
+    on_disk = json.load(f)
+  assert set(on_disk) >= {"step", "mean_psnr", "mean_ssim",
+                          "eval_rays_per_sec", "per_image",
+                          "eval_rays_per_sec_warm"}
+  assert on_disk["step"] == 30 == summary["step"]
+  views = [r["img"] for r in summary["per_image"]]
+  assert views == [0, 6]
+  for v in views:
+    assert read_png(os.path.join(out, f"{v:03d}.png")).shape == (24, 32, 3)
+    assert np.load(os.path.join(out, f"{v:03d}_depth.npy")).shape == (24, 32)
+  assert all(np.isfinite(r["psnr"]) and np.isfinite(r["ssim"])
+             for r in summary["per_image"])
+
+  rdir = cli_render.main(["--config", TINY, "--basedir", base, *CPU,
+                          "--render_mode", "path", "--render_n", "2"])
+  assert sorted(os.listdir(os.path.join(rdir, "rgb"))) == [
+      "00000.png", "00001.png"]
+  depth = read_png(os.path.join(rdir, "depth", "00001.png"))
+  assert depth.dtype == np.uint16 and depth.shape == (24, 32)
+  assert np.load(os.path.join(rdir, "render_poses.npy")).shape == (2, 3, 4)
+  assert np.load(os.path.join(rdir, "intrinsic.npy")).shape == (2, 3, 3)
+  rdir = cli_render.main(["--config", TINY, "--basedir", base, *CPU,
+                          "--render_mode", "test", "--render_n", "1",
+                          "--out_dir", str(tmp_path / "r")])
+  assert os.listdir(os.path.join(rdir, "rgb")) == ["00000.png"]
+
+
+def test_mip_realfocal_fixture_and_pose_refinement(tmp_path):
+  base = str(tmp_path)
+  common_args = ["--config", os.path.join(REPO, "configs",
+                                          "nuScenes_depth_6cams"),
+                 "--datadir", FIXTURE, "--basedir", base, *CPU]
+  cli_train.main(common_args + [*MIP_NARROW, "--depth_conf", "False",
+                                "--vgg_loss", "False", "--N_rgb", "64",
+                                "--N_iters", "4", "--i_weights", "4",
+                                "--i_print", "2", "--datahold", "12"])
+  exp = os.path.join(base, "scene_0916")
+  assert ckpt_lib.restore_pose_checkpoint(exp)[1] == 4
+  summary = cli_eval.main(common_args + ["--test_refine_iter", "2"])
+  # datahold 12 over 48 views; the snapshot supplied it and the widths
+  assert [r["img"] for r in summary["per_image"]] == [0, 12, 24, 36]
+  assert np.isfinite(summary["mean_psnr"])
+  rdir = cli_render.main(common_args + ["--render_mode", "path",
+                                        "--render_n", "1"])
+  assert read_png(os.path.join(rdir, "rgb", "00000.png")).shape == (96, 128,
+                                                                     3)
+
+
+def test_zip_train_eval_render_and_profile(tmp_path):
+  base = str(tmp_path)
+  args = ["--config", TINY, "--basedir", base, *ZIP_NARROW, *CPU,
+          "--i_weights", "3", "--i_print", "3", "--i_testset", "3",
+          "--profile_steps", "2", "--profile_start", "2"]
+  state = cli_train.main(args + ["--zip_max_steps", "6"])
+  assert state.step == 6
+  exp = os.path.join(base, "synthetic_tiny")
+  assert len([e for e in _log(exp) if "test_psnr" in e]) == 2
+  assert os.listdir(os.path.join(exp, "profile"))
+  state = cli_train.main(args + ["--zip_max_steps", "8"])
+  assert state.step == 8
+  summary = cli_eval.main(["--config", TINY, "--basedir", base, *CPU])
+  assert summary["step"] == 8 and np.isfinite(summary["mean_psnr"])
+  rdir = cli_render.main(["--config", TINY, "--basedir", base, *CPU,
+                          "--render_n", "1"])
+  assert os.listdir(os.path.join(rdir, "depth")) == ["00000.png"]
+
+
+def test_unported_paths_raise(tmp_path):
+  base = ["--config", TINY, "--basedir", str(tmp_path), *MIP_NARROW]
+  if not torch.cuda.is_available():
+    for main in (cli_train.main, cli_eval.main, cli_render.main):
+      with pytest.raises(RuntimeError, match="--device cpu"):
+        main(base)
+  for extra, match in ((["--unroll_steps", "2"], "Queue 1, item 1"),
+                       (["--tp", "2"], "Queue 1, item 9"),
+                       (["--dataset_type", "waymo"], "data/waymo.py"),
+                       (["--model", "classic"], "classic"),
+                       (["--encode_appearance", "True"], "encode_appearance")):
+    with pytest.raises(NotImplementedError, match=match):
+      cli_train.main(base + CPU + extra + ["--N_iters", "1"])
+  nus = ["--config", os.path.join(REPO, "configs", "nuScenes_depth_6cams"),
+         "--datadir", FIXTURE, "--basedir", str(tmp_path), *CPU]
+  with pytest.raises(NotImplementedError, match="depth_conf"):
+    cli_train.main(nus)
+  with pytest.raises(NotImplementedError, match="B.2"):
+    cli_train.main(["--config", TINY, "--basedir", str(tmp_path), *CPU,
+                    "--model", "zipnerf"])
+  with pytest.raises(NotImplementedError, match="scan render"):
+    cli_eval.main(base + CPU + ["--scan_render", "True"])
+  with pytest.raises(NotImplementedError, match="data/waymo.py"):
+    cli_render.main(base + CPU + ["--render_mode", "random"])
+  with pytest.raises(NotImplementedError, match="features.py"):
+    cli_eval.main(base + CPU + ["--lpips", "True"])

@@ -1,6 +1,8 @@
-"""The port (the mip and zip render paths and both train steps) runs
-where JAX is absent and loads no module of snerf_tpu, and chip_smoke.py
-refuses to run without a CUDA card (each in a fresh interpreter)."""
+"""The port (the mip and zip render paths, both train steps and the
+entry points on the realfocal fixture) runs where JAX, imageio, cv2,
+PIL and TensorBoard are absent, as on the card's machine, and loads no
+module of snerf_tpu; chip_smoke.py refuses to run without a CUDA card
+(each in a fresh interpreter)."""
 
 import os
 import shutil
@@ -10,9 +12,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RENDER_WITHOUT_JAX = r"""
-import importlib, pkgutil, sys
-sys.modules["jax"] = None      # any `import jax` now raises ImportError
-sys.modules["flax"] = None
+import importlib, os, pkgutil, runpy, sys, tempfile
+# any `import jax` (and the rest) now raises ImportError
+for blocked in ("jax", "flax", "imageio", "cv2", "PIL", "tensorboard"):
+  sys.modules[blocked] = None
 import torch
 import snerf_tpu_torch
 for m in pkgutil.walk_packages(snerf_tpu_torch.__path__, "snerf_tpu_torch."):
@@ -105,8 +108,25 @@ zlosses = [float(zstep(zstate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in zlosses), zlosses
 assert zstate.step == 2
 print("ZIP TRAINED", zstate.step)
+# the entry points as `python -m` runs them: 2 steps, then the eval
+base = tempfile.mkdtemp()
+fixture = ["--config", "configs/nuScenes_depth_6cams", "--datadir",
+           "tests/fixtures/nuscenes_realfocal", "--basedir", base,
+           "--device", "cpu"]
+sys.argv = ["train"] + fixture + [
+    "--depth_conf", "False", "--vgg_loss", "False", "--hidden_layer", "16",
+    "--proposal_hidden_layer", "16", "--N_samples", "8", "--N_fine", "8",
+    "--N_rgb", "32", "--N_iters", "2", "--i_weights", "2", "--i_print", "1",
+    "--datahold", "16"]
+runpy.run_module("snerf_tpu_torch.cli.train", run_name="__main__")
+sys.argv = ["eval"] + fixture
+runpy.run_module("snerf_tpu_torch.cli.eval", run_name="__main__")
+assert os.path.isfile(os.path.join(base, "scene_0916", "testset_000002",
+                                   "metrics.json"))
+print("CLI RAN")
 jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
-    k.split(".")[0] in ("jax", "jaxlib", "flax", "snerf_tpu")))
+    k.split(".")[0] in ("jax", "jaxlib", "flax", "snerf_tpu", "imageio",
+                        "cv2", "PIL", "tensorboard")))
 assert jax_side == [], jax_side
 print("RENDERED", tuple(out["rgb"].shape))
 """
@@ -125,6 +145,7 @@ def test_port_imports_and_renders_with_jax_blocked():
   assert "ZIP RENDERED (4, 4, 3)" in proc.stdout
   assert "TRAINED 2" in proc.stdout
   assert "ZIP TRAINED 2" in proc.stdout
+  assert "CLI RAN" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
