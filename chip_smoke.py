@@ -82,14 +82,23 @@ Phases, each fatal on failure:
      call (dz @ w.T for dgrad, act.T @ dz for wgrad, TF32 off), and an
      autograd round trip through fused_mlp;
   7b. train slice: the shipped nuScenes_depth_6cams training step at
-     full width (depth_conf off, lrate_delay 0) on the same synthetic
+     full width (lrate_delay 0; its depth confidence on, the rgb, ssim,
+     depth and vgg maps precomputed on the card) on the same synthetic
      scene, N_rgb 4096, seeded: 2 warm-up and 24 timed steps (s/step,
      rays/s, peak memory, K1 launches per step against the expected
-     counts, tf32_split one a forward), finite and falling loss, a
-     torch.profiler breakdown of one step, and one step against the
-     same weights and draws with the
+     counts, tf32_split one a forward), finite and falling loss, moved
+     confidence lambdas, a torch.profiler breakdown of one step, and one
+     step against the same weights, lambdas and draws with the
      stacks' backward plain (every grad within STEP_BWD_TOL) and with
      plain stacks (loss, metrics, every grad), and a non-zero pose grad;
+  7c. the depth-confidence precompute (models/confidence.py, the seeded
+     VGG pyramid of models/features.py on cuDNN) on the card against the
+     port's CPU precompute of 8 realfocal train views, the shipped modes:
+     mean |card - CPU| and the share of entries more than 1 apart, uint8
+     units, within CONF_MEAN_TOL and CONF_FAR_TOL, beside two fault
+     readings (a shifted neighbour table, two VGG layers swapped) that
+     must exceed them; then its time per base image at 900 x 1600 on a
+     seeded 3-view scene against the VGG's f32 bound;
   8. zip train slice: the shipped waymo_zipnerf training step at full
      width (zip_lr_delay 0, zip_compute_dtype float32: JAX trains bf16
      zip MLPs, the port f32 until B.2) on the same scene with semantic
@@ -115,16 +124,20 @@ Phases, each fatal on failure:
        backwards, no K2): forward bit-equal, table gradient within
        SCATTER_TOL of an f64 control per level beside a fault reading;
        one zip_hash step under torch.profiler;
-     9b. cli.train with configs/nuScenes_depth_6cams at full width
-       (--depth_conf False --vgg_loss False --lrate_delay 0) for 40
-       steps, then resumed to 60 (the restored state bit-equal to the
-       state saved at 40), cli.eval on the test split and cli.render
+     9b. cli.train with configs/nuScenes_depth_6cams at full width, its
+       depth confidence as shipped (--lrate_delay 0) for 40 steps, then
+       resumed to 60 (the restored state, the confidence lambdas and
+       their Adam state included, bit-equal to the state saved at 40),
+       cli.eval --lpips True on the test split and cli.render
        --render_mode path --render_n 2: every output file, a falling
-       loss, finite PSNR and SSIM, K1 launched in train, eval and render;
-     9c. cli.train and cli.eval with configs/waymo_zipnerf at full width
-       on the fixture read as a nuScenes scene (--semantic False
-       --zip_compute_dtype float32), 20 steps: the fused encode 3
-       forwards and 3 backwards a step, K2 never;
+       loss, finite PSNR, SSIM and LPIPS, K1 launched in train, eval and
+       render;
+     9c. cli.train, cli.eval (the train views) and cli.render
+       --render_mode random --render_n 2 with configs/waymo_zipnerf at
+       full width, dataset_type waymo, on a Waymo-layout copy of the
+       fixture written at run time (--zip_compute_dtype float32), 20
+       steps: the fused encode 3 forwards and 3 backwards a step, K2
+       never; the random render's file set;
      9d. the mip quality cell (snerf_tpu_torch.bench_quality, family
        mip) for its 2,000 steps, seed 0, read at steps 500, 1,000 and
        2,000 beside the JAX package's seeds: held-out PSNR at 2,000 at
@@ -699,38 +712,57 @@ def _table_level_errs(torch, a, b):
 
 
 def train_slice(torch, scene, card):
-  """Phase 7b: the nuScenes_depth_6cams training step at full width.
-  Returns the K1 launch counts of the timed steps."""
+  """Phase 7b: the nuScenes_depth_6cams training step at full width, its
+  depth confidence (rgb, ssim, depth and vgg maps) precomputed on the
+  card. Returns the K1 launch counts of the timed steps."""
   from snerf_tpu_torch.config import load_config, model_config, train_config
   from snerf_tpu_torch.data.sampler import scene_to_device
+  from snerf_tpu_torch.models.confidence import (ConfidenceModel,
+                                                precompute_conf_maps)
+  from snerf_tpu_torch.models.features import make_feature_fn
   from snerf_tpu_torch.models.mipnerf import MipNerfModel
   from snerf_tpu_torch.models.posenet import LearnPose
   from snerf_tpu_torch.ops import fused_mlp as fm
   from snerf_tpu_torch.train import trainer
 
-  # depth_conf off: the confidence model and its VGG precompute are not
-  # ported. lrate_delay 0: the shipped 2,500-step warm-up starts at
-  # lr 5e-6, under which 26 steps would not move the loss measurably.
+  # lrate_delay 0: the shipped 2,500-step warm-up starts at lr 5e-6,
+  # under which 26 steps would not move the loss measurably
   cfg = load_config(["--config",
                      os.path.join(ROOT, "configs", "nuScenes_depth_6cams"),
-                     "--depth_conf", "False", "--lrate_delay", "0"])
+                     "--lrate_delay", "0"])
   mcfg, tcfg = model_config(cfg), train_config(cfg)
-  log(f"[train slice] nuScenes_depth_6cams with depth_conf OFF (not ported) "
-      f"and lrate_delay 0 (shipped 2500): N_rgb {tcfg.n_rgb}, hidden "
+  log(f"[train slice] nuScenes_depth_6cams as shipped but lrate_delay 0 "
+      f"(shipped 2500): N_rgb {tcfg.n_rgb}, hidden "
       f"{mcfg.hidden_layer} rgb_layer {mcfg.rgb_layer} proposal "
       f"{mcfg.proposal_hidden_layer}, samples {mcfg.num_samples} + "
       f"{mcfg.num_fine_intervals}, {mcfg.ray_shape}, fn2, "
       f"{mcfg.t_transform}, randomized {tcfg.randomized}, density_noise "
       f"{mcfg.density_noise}, pose_refine {tcfg.pose_refine}, depth_loss "
-      f"{tcfg.depth_loss} (disparity {tcfg.disparity_depth}), "
-      f"proposal_loss {tcfg.proposal_loss}, lr {tcfg.lrate}; scene "
+      f"{tcfg.depth_loss} (disparity {tcfg.disparity_depth}), depth_conf "
+      f"{tcfg.depth_conf} (modes {tcfg.conf_modes}, conf_num "
+      f"{tcfg.conf_num}, tau {tcfg.conf_tau}), proposal_loss "
+      f"{tcfg.proposal_loss}, lr {tcfg.lrate}; scene "
       f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
       f"{len(scene.i_train)} train views")
+  check(tcfg.depth_conf and "vgg" in tcfg.conf_modes,
+        f"the shipped config's confidence: {tcfg}")
   dev_scene = scene_to_device(scene, "cuda")
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  conf_maps = precompute_conf_maps(
+      tcfg.conf_modes, scene, dev_scene, conf_num=tcfg.conf_num,
+      tau=tcfg.conf_tau, feature_fn=make_feature_fn(device="cuda"))
+  torch.cuda.synchronize()
+  log(f"  confidence maps {tuple(conf_maps.shape)} {conf_maps.dtype} on "
+      f"{conf_maps.device} in {time.perf_counter() - t0:.2f} s (first "
+      f"call); mean per mode "
+      f"{[round(float(v), 1) for v in conf_maps.float().mean((0, 2, 3))]}")
   model, pose, state = trainer.create_train_state(
       0, mcfg, tcfg, scene.num_images, device="cuda")
+  lambdas0 = state.conf_model.lambdas.detach().clone()
   step = trainer.make_train_step(model, pose, tcfg, dev_scene,
-                                 scene.i_train, scene.near, scene.far)
+                                 scene.i_train, scene.near, scene.far,
+                                 conf_maps=conf_maps)
   gen = torch.Generator(device="cuda").manual_seed(0)
   kernels = (fm.fused_mlp, fm.tf32_split, fm.fused_mlp_bwd_dgrad,
              fm.fused_mlp_bwd_wgrad, fm.fused_mlp_bwd_reduce)
@@ -772,6 +804,12 @@ def train_slice(torch, scene, card):
     check(counts[name] == K1_BWD_PER_STEP * TRAIN_STEPS,
           f"{name} launches {counts[name]}, expected "
           f"{K1_BWD_PER_STEP * TRAIN_STEPS}")
+  moved = (state.conf_model.lambdas.detach() - lambdas0).abs()
+  log(f"  confidence lambdas after {TRAIN_WARMUP + TRAIN_STEPS} steps: "
+      f"moved up to {float(moved.max()):.3e}, in "
+      f"{int((moved.amax(0) > 0).sum())} of {moved.shape[1]} images' "
+      "columns")
+  check(float(moved.max()) > 0, "the confidence lambdas did not move")
 
   prof = profile_step(torch, lambda: step(state, gen))
 
@@ -799,24 +837,29 @@ def train_slice(torch, scene, card):
   # One step of this model against the same weights with the stacks'
   # backward plain (same forward) and with plain stacks, on the same
   # draws; fresh optimizers on every side.
-  models = {"kernel": (model, pose)}
+  # (the same lambdas on every side)
+  models = {"kernel": (model, pose, state.conf_model)}
   for name, stack_fn in (("plain backward", plain_bwd_stack),
                          ("plain stacks", fm.fused_mlp_plain)):
     m = MipNerfModel(mcfg, stack_fn=stack_fn, device="cuda")
     m.load_state_dict(model.state_dict())
     p = LearnPose(scene.num_images, device="cuda")
     p.load_state_dict(pose.state_dict())
-    models[name] = (m, p)
+    c = ConfidenceModel(tcfg.conf_modes, scene.num_images, device="cuda")
+    c.load_state_dict(state.conf_model.state_dict())
+    models[name] = (m, p, c)
   steps, metrics = {}, {}
   draws = trainer.draw_step(mcfg, tcfg, dev_scene["images"], scene.i_train,
                             gen)
-  for name, (m, p) in models.items():
+  for name, (m, p, c) in models.items():
     st = trainer.TrainState(
         step=state.step, model=m, optimizer=trainer.adam(m.parameters(), 0),
-        pose_model=p, pose_optimizer=trainer.adam(p.parameters(), 0))
+        pose_model=p, pose_optimizer=trainer.adam(p.parameters(), 0),
+        conf_model=c, conf_optimizer=trainer.adam(c.parameters(), 0))
     steps[name] = (trainer.make_train_step(m, p, tcfg, dev_scene,
                                            scene.i_train, scene.near,
-                                           scene.far), st)
+                                           scene.far, conf_maps=conf_maps),
+                   st)
     metrics[name] = steps[name][0](st, draws=draws)
   img = int(draws.img_idx[0])
   pose_grad = float(pose.r.grad[img].abs().max() + pose.t.grad[img].abs()
@@ -828,15 +871,18 @@ def train_slice(torch, scene, card):
     rel = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
            for k in want}
     errs = _grad_errs(torch, model, models[name][0])
-    pose_errs = _grad_errs(torch, pose, models[name][1])
+    # the lambdas' grad sums one image's 4,096 rays, as a pose grad does
+    pose_errs = {**_grad_errs(torch, pose, models[name][1]),
+                 **_grad_errs(torch, state.conf_model, models[name][2])}
     worst = max(errs.items(), key=lambda kv: kv[1][0])
     worst_pose = max(v[0] for v in pose_errs.values())
     log(f"  one step, kernel model vs {name}: loss rel err "
         f"{rel['loss']:.2e} (tol {STEP_LOSS_TOL}), every metric's {rel} "
         f"(tol {STEP_METRIC_TOL}); grads: worst relative L2 "
         f"{worst[1][0]:.2e} at {worst[0]} (max abs {worst[1][1]:.2e}, "
-        f"max|plain| {worst[1][2]:.2e}; tol {model_tol}), pose "
-        f"{worst_pose:.2e} (tol {pose_tol})")
+        f"max|plain| {worst[1][2]:.2e}; tol {model_tol}), pose and "
+        f"confidence {worst_pose:.2e} (tol {pose_tol}; lambdas "
+        f"{pose_errs['lambdas'][0]:.2e})")
     check(rel["loss"] <= STEP_LOSS_TOL,
           f"kernel step's loss disagrees with {name}: {rel}")
     check(all(v <= STEP_METRIC_TOL for v in rel.values()),
@@ -844,7 +890,8 @@ def train_slice(torch, scene, card):
     check(worst[1][0] <= model_tol,
           f"kernel step's grads disagree with {name}: {worst}")
     check(worst_pose <= pose_tol,
-          f"kernel step's pose grads disagree with {name}: {pose_errs}")
+          f"kernel step's pose or confidence grads disagree with {name}: "
+          f"{pose_errs}")
   log(f"  pose grad of the sampled image {img}: {pose_grad:.3e}")
   check(pose_grad > 0, "the sampled image's pose got no gradient")
 
@@ -861,7 +908,7 @@ def train_slice(torch, scene, card):
   log(f"  one step end to end: kernel model {times['kernel']:.4f} / "
       f"{times['kernel2']:.4f} s, plain-stack model {times['plain']:.4f} / "
       f"{times['plain2']:.4f} s")
-  del model, pose, state, models, steps, m, p, st
+  del model, pose, state, models, steps, m, p, c, st, conf_maps
   torch.cuda.empty_cache()
   return counts, prof
 
@@ -1992,6 +2039,184 @@ def counted(fn):
   return out, {k: w.launches for k, w in counters.items()}
 
 
+# 7c: the confidence precompute on the card against the port's CPU
+# precompute of the same realfocal train views (the shipped modes rgb,
+# ssim, depth and vgg, conf_num 1, tau 0.3), in uint8 units per mode: the
+# mean |card - CPU| and the share of entries more than 1 apart. Sound, the
+# two differ only where a float map sits at a rounding edge or an f32
+# product lands a pixel on the other side of a view's border; a fault
+# read in the same run (the neighbour table shifted by one image, two
+# 256-wide VGG layers swapped) moves whole maps, and must read above
+# both limits in a mode it touches. A precision control read in the same
+# run, the card's precompute with TF32 on for matmuls and cuDNN's
+# convolutions (cli.train turns both off), must read above a limit.
+CONF_VIEWS = 8
+CONF_MEAN_TOL = 0.05
+CONF_FAR_TOL = 1e-3
+# the precompute's time per base image at nuScenes' size, on a seeded
+# scene of 3 train images (one camera)
+CONF_HW = (900, 1600)
+
+
+def vgg_flops(H, W):
+  """Multiply-adds x 2 of the VGG pyramid of one [H, W, 3] image."""
+  from snerf_tpu_torch.models.features import _OPS
+  flops, cin, h, w = 0.0, 3, H, W
+  for op in _OPS:
+    if op[0] == "conv":
+      flops += 2.0 * 9 * cin * op[2] * h * w
+      cin = op[2]
+    elif op[0] == "pool":
+      h, w = h // 2, w // 2
+  return flops
+
+
+def _conf_diff(torch, got, want, modes):
+  """{mode: (mean |got - want|, share of entries more than 1 apart)} of
+  two uint8 map stacks [n, n_modes, H, W]."""
+  d = (got.to(want.device).short() - want.short()).abs().float()
+  return {m: (float(d[:, i].mean()), float((d[:, i] > 1).float().mean()))
+          for i, m in enumerate(modes)}
+
+
+def with_tf32_on(torch, fn):
+  """fn() with TF32 turned on for matmuls and cuDNN before it; returns
+  (its result, (matmul, cudnn) TF32 as fn left them). Both are off
+  again after."""
+  torch.backends.cuda.matmul.allow_tf32 = True
+  torch.backends.cudnn.allow_tf32 = True
+  try:
+    out = fn()
+    return out, (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def conf_precompute_phase(torch, card):
+  """7c: the depth-confidence precompute (models/confidence.py, with the
+  seeded VGG pyramid of models/features.py) on the card against the
+  port's CPU precompute, beside two fault readings and a TF32 control;
+  then its time per base image at 900 x 1600 against the VGG's f32
+  bound."""
+  import numpy as np
+  from snerf_tpu_torch.cli import common
+  from snerf_tpu_torch.config import conf_modes, load_config
+  from snerf_tpu_torch.data.sampler import scene_to_device
+  from snerf_tpu_torch.data.scene import Scene
+  from snerf_tpu_torch.data.synthetic import make_synthetic_scene
+  from snerf_tpu_torch.models import confidence as conf
+  from snerf_tpu_torch.models import features
+
+  cfg = load_config(["--config",
+                     os.path.join(ROOT, "configs", "nuScenes_depth_6cams"),
+                     "--datadir", FIXTURE])
+  modes = conf_modes(cfg)
+  scene = common.load_scene(cfg)
+  scene.i_train = scene.i_train[::2][:CONF_VIEWS]  # half_train's first
+  log(f"[confidence] precompute on the card vs the CPU: "
+      f"{len(scene.i_train)} realfocal train views {list(scene.i_train)}, "
+      f"modes {modes}, conf_num {cfg.conf_num}, tau {cfg.tau}")
+
+  def run(device, feature_fn):
+    return conf.precompute_conf_maps(
+        modes, scene, scene_to_device(scene, device), conf_num=cfg.conf_num,
+        tau=cfg.tau, feature_fn=feature_fn)
+
+  t0 = time.perf_counter()
+  want = run("cpu", features.make_feature_fn(device="cpu"))
+  cpu_s = time.perf_counter() - t0
+  sound_fn = features.make_feature_fn(device="cuda")
+  got = run("cuda", sound_fn)
+  sound = _conf_diff(torch, got, want, modes)
+
+  build_table = conf.build_neighbor_table
+  conf.build_neighbor_table = lambda *a: tuple(
+      np.roll(t, 1, axis=0) for t in build_table(*a))
+  try:
+    shifted = _conf_diff(torch, run("cuda", sound_fn), want, modes)
+  finally:
+    conf.build_neighbor_table = build_table
+  vgg_params = features.vgg_params
+
+  def swapped(*a, **k):
+    p = vgg_params(*a, **k)
+    p[12], p[14] = p[14], p[12]
+    return p
+
+  features.vgg_params = swapped
+  try:
+    bad_fn = features.make_feature_fn(device="cuda")
+  finally:
+    features.vgg_params = vgg_params
+  swapped_vgg = _conf_diff(torch, run("cuda", bad_fn), want, modes)
+  tf32 = _conf_diff(torch, with_tf32_on(torch, lambda: run(
+      "cuda", sound_fn))[0], want, modes)
+  for name, r in (("sound", sound), ("fault: neighbour table shifted",
+                                     shifted),
+                  ("fault: VGG layers 12 and 14 swapped", swapped_vgg),
+                  ("control: TF32 on", tf32)):
+    log(f"  {name}: mean |card - CPU| / share > 1, uint8 units, by mode: "
+        + ", ".join(f"{m} {v[0]:.4f} / {v[1]:.2e}" for m, v in r.items()))
+  log(f"  limits: mean {CONF_MEAN_TOL}, share {CONF_FAR_TOL}; CPU precompute "
+      f"{cpu_s:.2f} s")
+  check(all(v[0] <= CONF_MEAN_TOL and v[1] <= CONF_FAR_TOL
+            for v in sound.values()),
+        f"the card's confidence maps disagree with the CPU's: {sound}")
+  for name, r in (("shifted table", shifted), ("swapped VGG", swapped_vgg)):
+    check(any(v[0] > CONF_MEAN_TOL and v[1] > CONF_FAR_TOL
+              for v in r.values()),
+          f"the {name} fault reads within the limits: {r}")
+  check(swapped_vgg["vgg"][0] > CONF_MEAN_TOL
+        and swapped_vgg["rgb"] == sound["rgb"],
+        f"the swapped VGG moved other modes or not vgg: {swapped_vgg}")
+  check(any(v[0] > CONF_MEAN_TOL or v[1] > CONF_FAR_TOL
+            for v in tf32.values()),
+        f"the precompute with TF32 on reads within the limits: {tf32}")
+
+  # time per base image at 900 x 1600: the synthetic layout's poses with
+  # its intrinsics scaled up, seeded images and depths made on the card
+  H, W = CONF_HW
+  small = make_synthetic_scene(num_images=4, H=9, W=16, datahold=4)
+  K = small.intrinsics.copy()
+  K[:, :2] *= W / 16
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  big = Scene(images=np.zeros((4, 1, 1, 3), np.uint8), poses=small.poses,
+              intrinsics=K, near=small.near, far=small.far,
+              cam_index=small.cam_index, i_train=small.i_train,
+              i_test=small.i_test)
+  dev = {"images": torch.randint(0, 256, (4, H, W, 3), generator=gen,
+                                 device="cuda", dtype=torch.uint8),
+         "depths": 2.0 + torch.rand((4, H, W), generator=gen,
+                                    device="cuda"),
+         "poses": torch.as_tensor(big.poses, device="cuda"),
+         "intrinsics": torch.as_tensor(K, device="cuda")}
+  times = []
+  for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = conf.precompute_conf_maps(modes, big, dev, conf_num=cfg.conf_num,
+                                     tau=cfg.tau, feature_fn=sound_fn)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3 / len(big.i_train))
+  slots = 2 * cfg.conf_num
+  flops = slots * 2 * vgg_flops(H, W)
+  nbytes = (slots + 1) * H * W * (3 + 4) + len(modes) * H * W
+  bound, bound_by = bound_ms(nbytes, flops, F32_RATE)
+  ms = min(times[1:])
+  log(f"  {tuple(maps.shape)} {maps.dtype}: {ms:.1f} ms a base image at "
+      f"{H} x {W} (runs {', '.join(f'{t:.1f}' for t in times)} ms, the "
+      f"first with cuDNN's set-up), bound {bound:.1f} ms ({bound_by}: "
+      f"{slots} neighbour slots x 2 images x {vgg_flops(H, W) / 1e9:.1f} "
+      f"GFLOP of VGG at {F32_RATE / 1e12:.0f} TFLOP/s f32), "
+      f"{100 * bound / ms:.1f}% of it | {card}")
+  del dev, maps, got, want
+  torch.cuda.empty_cache()
+  return dict(ms=ms, bound_ms=bound, bound_by=bound_by, sound=sound,
+              shifted=shifted, swapped=swapped_vgg, tf32=tf32)
+
+
 def cell_shapes_phase(torch):
   """9a: K1 at D = 512 (forward, backward, reduce, tf32_split) at the mip
   quality cell's row counts, and the fused encode at the zip_hash cell's
@@ -2093,10 +2318,13 @@ def _expect_files(paths):
 
 def mip_cli_phase(torch, base):
   """9b: python -m snerf_tpu_torch.cli.train / eval / render, in process
-  through each main(argv), on the realfocal fixture at the full width of
-  configs/nuScenes_depth_6cams: 40 steps, a resume to 60 (its restored
-  state checked bit-equal to the state saved at 40), the test split's
-  eval and a 2-view path render. K1's launches counted in each run."""
+  through each main(argv), on the realfocal fixture with
+  configs/nuScenes_depth_6cams as shipped (its depth confidence
+  precomputed on the card) but lrate_delay: 40 steps, a resume to 60 (its
+  restored state, the confidence lambdas and their Adam state included,
+  checked bit-equal to the state saved at 40), the test split's eval with
+  --lpips and a 2-view path render. K1's launches counted in each run;
+  train and eval start with TF32 on and must turn it off."""
   import numpy as np
   from snerf_tpu_torch.cli import eval as cli_eval
   from snerf_tpu_torch.cli import render as cli_render
@@ -2104,20 +2332,28 @@ def mip_cli_phase(torch, base):
   from snerf_tpu_torch.data.png import read_png
   from snerf_tpu_torch.train import checkpoints as ckpt_lib
 
-  # depth_conf and vgg_loss off: the depth confidence is not ported (D);
   # lrate_delay 0: the shipped warm-up starts at lr 5e-6, under which 60
   # steps would not move the loss
   common = ["--config", os.path.join(ROOT, "configs", "nuScenes_depth_6cams"),
             "--datadir", FIXTURE, "--basedir", base, "--device", "cuda"]
-  args = common + ["--depth_conf", "False", "--vgg_loss", "False",
-                   "--lrate_delay", "0", "--i_print", "10",
+  args = common + ["--lrate_delay", "0", "--i_print", "10",
                    "--i_weights", "20", "--i_testset", "20"]
   log("[entry points] cli.train nuScenes_depth_6cams on "
-      f"{os.path.relpath(FIXTURE, ROOT)}: --depth_conf False --vgg_loss "
-      "False --lrate_delay 0, 40 steps, then --resume to 60")
-  state40, c_train = counted(lambda: cli_train.main(args + ["--N_iters",
-                                                            "40"]))
+      f"{os.path.relpath(FIXTURE, ROOT)}: depth_conf, vgg_loss and "
+      "precompute_conf as shipped, --lrate_delay 0, 40 steps, then --resume "
+      "to 60")
+  (state40, c_train), tf32_train = with_tf32_on(torch, lambda: counted(
+      lambda: cli_train.main(args + ["--N_iters", "40"])))
+  check(tf32_train == (False, False), "cli.train left TF32 on (matmul, "
+        f"cudnn): {tf32_train}")
+  check(state40.conf_model is not None
+        and state40.conf_model.modes == ("rgb", "ssim", "depth", "vgg"),
+        "cli.train did not build the shipped confidence model")
   saved = ckpt_lib.state_payload(state40)
+  lambdas = saved["conf_model"]["lambdas"]
+  log(f"  confidence lambdas at step 40: |max| {float(lambdas.abs().max()):.3e}"
+      f", Adam state {sorted(saved['conf_optimizer']['state'][0])}")
+  check(float(lambdas.abs().max()) > 0, "the lambdas did not move")
   del state40
   seen = {}
   restore = ckpt_lib.restore_checkpoint
@@ -2135,8 +2371,10 @@ def mip_cli_phase(torch, base):
     ckpt_lib.restore_checkpoint = restore
   check(seen.get("step") == 40, f"the resumed run restored step "
         f"{seen.get('step')}, not 40")
-  check(_payload_equal(torch, seen["payload"], saved), "the restored state "
-        "differs from the state saved at step 40")
+  check({"conf_model", "conf_optimizer"} <= set(seen["payload"])
+        and _payload_equal(torch, seen["payload"], saved), "the restored "
+        "state (the confidence state included) differs from the state "
+        "saved at step 40")
   check(state60.step == 60, f"the resumed run ended at {state60.step}")
   del state60, saved, seen
   torch.cuda.empty_cache()
@@ -2145,7 +2383,8 @@ def mip_cli_phase(torch, base):
   losses = [(e["step"], e["loss"]) for e in logged if "loss" in e]
   tests = [(e["step"], e["test_psnr"]) for e in logged if "test_psnr" in e]
   log(f"  train loss by step {losses}; test view PSNR {tests}; K1 launches "
-      f"train {c_train}, resumed {c_resume}")
+      f"train {c_train}, resumed {c_resume}; TF32 (matmul, cudnn) after "
+      f"cli.train, started on: {tf32_train}")
   check([s for s, _ in losses] == [10, 20, 30, 40, 50, 60],
         f"logged steps {[s for s, _ in losses]}")
   check(all(math.isfinite(v) for _, v in losses + tests), "non-finite log")
@@ -2157,17 +2396,22 @@ def mip_cli_phase(torch, base):
       "args.txt", "config.txt", "checkpoints/000000040.pt",
       "checkpoints/000000060.pt", "pose/000000060.pt")])
 
-  log("[entry points] cli.eval, the test split")
-  summary, c_eval = counted(lambda: cli_eval.main(common))
+  log("[entry points] cli.eval --lpips True, the test split")
+  (summary, c_eval), tf32_eval = with_tf32_on(torch, lambda: counted(
+      lambda: cli_eval.main(common + ["--lpips", "True"])))
+  check(tf32_eval == (False, False), "cli.eval left TF32 on (matmul, "
+        f"cudnn): {tf32_eval}")
   views = [r["img"] for r in summary["per_image"]]
+  lpips = [round(r["lpips"], 4) for r in summary["per_image"]]
   log(f"  step {summary['step']}: mean PSNR {summary['mean_psnr']:.3f}, "
-      f"SSIM {summary['mean_ssim']:.4f} over views {views}; eval "
-      f"{summary['eval_rays_per_sec']:.0f} rays/s (warm "
+      f"SSIM {summary['mean_ssim']:.4f} over views {views}, LPIPS (seeded "
+      f"VGG) {lpips}; eval {summary['eval_rays_per_sec']:.0f} rays/s (warm "
       f"{summary.get('eval_rays_per_sec_warm', 0):.0f}); K1 launches "
       f"{c_eval}")
   check(summary["step"] == 60, f"eval restored step {summary['step']}")
   check(all(math.isfinite(r[k]) for r in summary["per_image"]
-            for k in ("psnr", "ssim")), "non-finite eval metrics")
+            for k in ("psnr", "ssim", "lpips")), "non-finite eval metrics")
+  check(all(v > 0 for v in lpips), f"LPIPS {lpips}")
   check(c_eval["fused_mlp"] > 0, f"cli.eval did not launch K1: {c_eval}")
   out = os.path.join(exp, "testset_000060")
   _expect_files([os.path.join(out, "metrics.json")] + [
@@ -2193,20 +2437,53 @@ def mip_cli_phase(torch, base):
               summary=summary)
 
 
+def waymo_layout(base):
+  """A Waymo-layout copy of the realfocal fixture in a new directory under
+  `base`: images/ and depth/ (the fixture's uint16 depth PNGs, metres x
+  256, as Waymo's) under the same names, labels/ seeded in [0, 19) (RGB
+  PNGs, the label in every channel; the loader keeps channel 0) and
+  poses_bounds.npy (the same n x 19 layout). No mask/: the side-camera
+  rule applies."""
+  import tempfile
+
+  import numpy as np
+  from snerf_tpu_torch.data.png import read_png, write_png
+  root = tempfile.mkdtemp(prefix="waymo_", dir=base)
+  shutil.copytree(os.path.join(FIXTURE, "images"),
+                  os.path.join(root, "images"))
+  shutil.copytree(os.path.join(FIXTURE, "depths"),
+                  os.path.join(root, "depth"))
+  shutil.copy(os.path.join(FIXTURE, "poses_bounds.npy"), root)
+  os.makedirs(os.path.join(root, "labels"))
+  rng = np.random.RandomState(0)
+  for name in sorted(os.listdir(os.path.join(root, "images"))):
+    h, w = read_png(os.path.join(root, "images", name)).shape[:2]
+    lab = rng.randint(0, 19, (h, w)).astype(np.uint8)
+    write_png(os.path.join(root, "labels", name),
+              np.repeat(lab[..., None], 3, axis=2))
+  return root
+
+
 def zip_cli_phase(torch, base):
-  """9c: cli.train and cli.eval with configs/waymo_zipnerf at full width
-  on the realfocal fixture (read as a nuScenes scene: data/waymo.py is
-  not ported), 20 steps: the fused encode 3 forwards and 3 backwards a
-  step, K2 never."""
+  """9c: cli.train, cli.eval and cli.render --render_mode random with
+  configs/waymo_zipnerf at full width, dataset_type waymo as shipped,
+  on a Waymo-layout copy of the realfocal fixture, 20 steps: the fused
+  encode 3 forwards and 3 backwards a step, K2 never; eval of the train
+  views (a Waymo scene holds no test split); the random render's file
+  set (random_render_waymo_seq.py's)."""
+  import numpy as np
   from snerf_tpu_torch.cli import eval as cli_eval
+  from snerf_tpu_torch.cli import render as cli_render
   from snerf_tpu_torch.cli import train as cli_train
+  from snerf_tpu_torch.data.png import read_png
 
   steps = 20
+  data = waymo_layout(base)
   common = ["--config", os.path.join(ROOT, "configs", "waymo_zipnerf"),
-            "--datadir", FIXTURE, "--basedir", base, "--device", "cuda",
-            "--dataset_type", "nuscenes", "--semantic", "False"]
-  log("[entry points] cli.train waymo_zipnerf on the fixture as a nuScenes "
-      f"scene, --semantic False --zip_compute_dtype float32, {steps} steps")
+            "--datadir", data, "--basedir", base, "--device", "cuda"]
+  log("[entry points] cli.train waymo_zipnerf (dataset_type waymo, 19 "
+      "semantic classes) on a Waymo-layout copy of the fixture, "
+      f"--zip_compute_dtype float32, {steps} steps")
   state, c_train = counted(lambda: cli_train.main(common + [
       "--zip_compute_dtype", "float32", "--zip_max_steps", str(steps),
       "--zip_lr_delay", "0", "--i_print", "5"]))
@@ -2222,17 +2499,45 @@ def zip_cli_phase(torch, base):
         f"expected {ENCODE_PER_MLP} each a step")
   check(c_train["hash_gather"] == c_train["hash_scatter_add"] == 0,
         f"K2 launched on the zip path: {c_train}")
-  summary, c_eval = counted(lambda: cli_eval.main(common))
-  log(f"  cli.eval: step {summary['step']}, mean PSNR "
+  summary, c_eval = counted(lambda: cli_eval.main(common + ["--eval_test",
+                                                            "False"]))
+  log(f"  cli.eval --eval_test False: step {summary['step']}, mean PSNR "
       f"{summary['mean_psnr']:.3f}, SSIM {summary['mean_ssim']:.4f} over "
-      f"{len(summary['per_image'])} views; launches {c_eval}")
+      f"{len(summary['per_image'])} views, mIoU {summary.get('miou')}; "
+      f"launches {c_eval}")
+  check(len(summary["per_image"]) == 42 and "miou" in summary,
+        f"eval's views / mIoU: {len(summary['per_image'])}, {summary}")
   check(all(math.isfinite(r[k]) for r in summary["per_image"]
             for k in ("psnr", "ssim")), "non-finite zip eval metrics")
   check(c_eval["hash_encode_fwd"] > 0 and c_eval["hash_gather"] == 0,
         f"cli.eval's zip launches {c_eval}")
   _expect_files([os.path.join(base, "waymo_zip", "testset_000020",
                               "metrics.json")])
-  return dict(train=c_train, eval=c_eval, summary=summary)
+
+  log("[entry points] cli.render --render_mode random --render_n 2")
+  out, c_render = counted(lambda: cli_render.main(
+      common + ["--render_mode", "random", "--render_n", "2"]))
+  _expect_files([os.path.join(out, f) for f in (
+      "rgb/00000.png", "rgb/00001.png", "depth/00000.png", "depth/00001.png",
+      "semantic/00000.npy", "semantic/00001.npy", "raw_target_poses.npy",
+      "render_poses.npy", "intrinsic.npy")])
+  shapes = {n: np.load(os.path.join(out, f"{n}.npy")).shape
+            for n in ("raw_target_poses", "render_poses", "intrinsic")}
+  depth = read_png(os.path.join(out, "depth", "00001.png"))
+  sem = np.load(os.path.join(out, "semantic", "00000.npy"))
+  log(f"  outputs under {os.path.relpath(out, ROOT)}: {shapes}, depth "
+      f"{depth.dtype} {depth.shape}, semantic {sem.dtype} {sem.shape} "
+      f"(classes {sorted(set(sem.reshape(-1).tolist()))[:8]}...); "
+      f"launches {c_render}")
+  check(shapes == {"raw_target_poses": (2, 4, 4), "render_poses": (2, 4, 4),
+                   "intrinsic": (2, 3, 3)}, f"pose files {shapes}")
+  check(depth.dtype == np.uint16 and depth.shape == (96, 128)
+        and sem.shape == (96, 128), "random render's depth / semantic")
+  check(read_png(os.path.join(out, "rgb", "00000.png")).shape
+        == (96, 128, 3), "random render's png")
+  check(c_render["hash_encode_fwd"] > 0 and c_render["hash_gather"] == 0,
+        f"cli.render's zip launches {c_render}")
+  return dict(train=c_train, eval=c_eval, render=c_render, summary=summary)
 
 
 def quality_cell_phase(torch):
@@ -2578,6 +2883,10 @@ def main() -> int:
   train_counts, _ = train_slice(torch, scene, card)
   log(f"  K1 launches: mip render {launches}, train {train_counts}")
   phase_done("7b mip train")
+
+  # 7c. the confidence precompute
+  conf_precompute_phase(torch, card)
+  phase_done("7c confidence precompute")
 
   # 8. zip train slice
   zip_counts, _ = zip_train_slice(torch, scene, card)

@@ -14,7 +14,6 @@ from snerf_tpu_torch.data.scene import Scene
 
 # loaders the port has not ported yet -> their ROADMAP item
 _UNPORTED_LOADERS = {
-    "waymo": "data/waymo.py, ROADMAP Queue 1, item 4",
     "llff": "data/llff.py, ROADMAP Queue 1, item 7",
     "dtu": "data/dtu.py, ROADMAP Queue 1, item 8",
     "tnt": "data/tnt.py, ROADMAP Queue 1, item 8",
@@ -61,10 +60,18 @@ def reject_scan_render(argv: List[str], cfg):
         "(ROADMAP Queue 1, item 7); the port renders chunk by chunk")
 
 
+def float32_numerics():
+  """float32 products on the card, as the JAX package computes them on
+  the CPU: TF32 off for matmuls and for cuDNN's convolutions (the SSIM
+  blur, the VGG pyramid of the confidence and of --lpips)."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+
 def load_scene(cfg) -> Scene:
   """The scene of `cfg.dataset_type` (train.py's `load_scene`): the
-  synthetic scene or a nuScenes directory. The other loaders raise,
-  naming their ROADMAP item."""
+  synthetic scene, a nuScenes or a Waymo directory. The other loaders
+  raise, naming their ROADMAP item."""
   if cfg.dataset_type == "synthetic":
     from snerf_tpu_torch.data.synthetic import make_synthetic_scene
     return make_synthetic_scene(num_images=max(6, cfg.cam_num), H=cfg.H,
@@ -77,6 +84,10 @@ def load_scene(cfg) -> Scene:
         load_depth=cfg.depth_loss or cfg.near_far,
         load_semantic=cfg.semantic, no_align=cfg.no_align,
         colmap=cfg.colmap)
+  if cfg.dataset_type == "waymo":
+    from snerf_tpu_torch.data.waymo import load_waymo_scene
+    return load_waymo_scene(cfg.datadir, llffhold=cfg.llffhold,
+                            factor=cfg.factor, load_semantic=cfg.semantic)
   if cfg.dataset_type in _UNPORTED_LOADERS:
     raise NotImplementedError(
         f"dataset_type {cfg.dataset_type!r} is not ported yet "

@@ -9,9 +9,10 @@ train split with `--eval_test False`) chunk by chunk, optionally after
 test-time pose refinement (`--test_refine_iter`), and writes under
 <exp_dir>/testset_<step:06d>: `<ti:03d>.png`, `<ti:03d>_depth.npy`,
 `<ti:03d>_semantic.npy` (semantic models) and `metrics.json` (per-image
-PSNR/SSIM, their means, mIoU when semantic, eval rays/s), the keys of
-eval.py's. `--lpips` and `--scan_render` raise (see
-`utils/metrics.MetricHarness` and `cli.common.reject_scan_render`).
+PSNR/SSIM, with `--lpips` the VGG feature distance too; the PSNR and
+SSIM means, mIoU when semantic, eval rays/s), the keys of eval.py's.
+Products are float32 (TF32 off). `--scan_render` raises
+(`cli.common.reject_scan_render`).
 """
 
 from __future__ import annotations
@@ -81,11 +82,12 @@ def refine_test_poses(model, scene, idxs, device, n_iters: int = 100,
 def main(argv=None):
   argv, extra = common.split_flags(argv, {"device": "cuda"})
   device = common.resolve_device(extra["device"])
+  common.float32_numerics()
   cfg = load_config_with_snapshot(argv)
   common.reject_scan_render(argv, cfg)
   exp_dir = cfg.exp_dir()
   ckpt_dir = os.path.join(exp_dir, "checkpoints")
-  harness = MetricHarness(lpips=cfg.lpips)
+  harness = MetricHarness(lpips=cfg.lpips, device=device)
 
   scene = common.load_scene(cfg)
   model, state = common.build_model_state(cfg, scene.num_images, device)

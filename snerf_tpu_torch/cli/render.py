@@ -1,17 +1,20 @@
 """Batch render entry point of the port (counterpart of render.py):
 
   python -m snerf_tpu_torch.cli.render --config <file> [--key value ...]
-      [--render_mode test|path] [--render_n N] [--out_dir DIR]
-      [--device cuda|cpu]
+      [--render_mode test|path|random] [--render_n N] [--render_seed S]
+      [--out_dir DIR] [--device cuda|cpu]
 
 Restores the newest checkpoint (or `--ckpt N`) of the experiment and
-renders `--render_n` views: the test split (`test`) or an elliptical path
+renders `--render_n` views: the test split (`test`), an elliptical path
 around the training cameras (`path`, which also saves render_poses.npy
+and intrinsic.npy) or random novel poses around the training trajectory
+(`random`, the S-NeRF++ simulation pipeline's backgrounds: Waymo's
+random poses, or whole 6-camera rigs on a nuScenes scene, drawn from
+`--render_seed`; it also saves raw_target_poses.npy, render_poses.npy
 and intrinsic.npy). Writes rgb/<i:05d>.png, depth/<i:05d>.png (uint16:
 distance / scene scale x 256) and semantic/<i:05d>.npy (semantic models)
-under <exp_dir>/render or `--out_dir`. The `random` mode needs
-data/waymo.py's pose generators, not ported yet (ROADMAP Queue 1, item
-4), and raises.
+under <exp_dir>/render or `--out_dir`: the file set of
+random_render_waymo_seq.py.
 """
 
 from __future__ import annotations
@@ -37,11 +40,7 @@ def main(argv=None):
   argv, extra = common.split_flags(argv, _EXTRA)
   device = common.resolve_device(extra["device"])
   mode = extra["render_mode"]
-  if mode not in ("test", "path"):
-    if mode == "random":
-      raise NotImplementedError(
-          "--render_mode random needs data/waymo.py's render-pose "
-          "generators, not ported yet (ROADMAP Queue 1, item 4)")
+  if mode not in ("test", "path", "random"):
     raise ValueError(f"unknown --render_mode {mode!r}")
   cfg = load_config_with_snapshot(argv)
   common.reject_scan_render(argv, cfg)
@@ -60,7 +59,12 @@ def main(argv=None):
   print(f"rendering from checkpoint step {restored}")
 
   n_render = int(extra["render_n"])
-  if mode == "path":
+  H, W = scene.hw
+  hws = None
+  if mode == "random":
+    poses, Ks, hws = random_poses(cfg, scene, n_render,
+                                  int(extra["render_seed"]), out_dir)
+  elif mode == "path":
     poses = camera_utils.generate_ellipse_path(scene.poses, n_frames=n_render)
     Ks = np.tile(scene.intrinsics[:1], (len(poses), 1, 1))
     np.save(os.path.join(out_dir, "render_poses.npy"), poses)
@@ -69,11 +73,11 @@ def main(argv=None):
     idxs = np.asarray(scene.i_test)[:n_render]
     poses, Ks = scene.poses[idxs], scene.intrinsics[idxs]
 
-  H, W = scene.hw
   with eval_weights(state):
     render_fn = common.render_fn_for(cfg, model)
     for i in range(len(poses)):
-      rays = common.image_rays(scene, poses[i], Ks[i], device, H, W,
+      hi, wi = (H, W) if hws is None else (int(hws[i][0]), int(hws[i][1]))
+      rays = common.image_rays(scene, poses[i], Ks[i], device, hi, wi,
                                render_factor=cfg.render_factor)
       out = common.to_numpy(render_image(render_fn, rays, chunk=cfg.chunk))
       write_png(os.path.join(out_dir, "rgb", f"{i:05d}.png"),
@@ -89,6 +93,31 @@ def main(argv=None):
       print(f"rendered {i + 1}/{len(poses)}")
   print(f"outputs under {out_dir}")
   return out_dir
+
+
+def random_poses(cfg, scene, n_render: int, seed: int, out_dir: str):
+  """render.py's random mode: novel poses around the training trajectory
+  (Waymo's forward and side cameras from the first and last views'
+  intrinsics, or whole `cam_num` rigs on a nuScenes scene), saved with
+  their raw-frame poses (render2raw through the scene's PCA transform)
+  and intrinsics. Returns (poses [N, 3, 4], Ks [N, 3, 3], hws [N, 2])."""
+  from snerf_tpu_torch.data import waymo
+  hw = np.array(scene.hw)
+  if cfg.dataset_type == "nuscenes":
+    cam_num = max(cfg.cam_num, 1)
+    pose_set = waymo.generate_nuscenes_render_poses(
+        scene.poses, scene.intrinsics, hw, scene.scale,
+        n_render=max(n_render // cam_num, 1), cam_num=cam_num, seed=seed)
+  else:
+    pose_set = waymo.generate_random_render_poses(
+        scene.poses, scene.intrinsics[0], scene.intrinsics[-1], hw, hw,
+        scene.scale, n_render=n_render, seed=seed)
+  transform = getattr(scene, "pca_transform", np.eye(4))
+  raw = waymo.render2raw(pose_set.poses, transform, scene.scale, np.eye(4))
+  np.save(os.path.join(out_dir, "raw_target_poses.npy"), raw)
+  np.save(os.path.join(out_dir, "render_poses.npy"), pose_set.poses)
+  np.save(os.path.join(out_dir, "intrinsic.npy"), pose_set.intrinsics)
+  return pose_set.poses[:, :3, :], pose_set.intrinsics, pose_set.hws
 
 
 if __name__ == "__main__":

@@ -7,17 +7,22 @@ Same flags as train.py, read by the port's own parser, plus `--device`
 (default cuda; without a card it raises, pass `--device cpu` to run on
 the CPU). It loads the scene, builds the model state (mip or zip by
 `--model`), resumes from the newest checkpoint (`--resume`, default on),
-and runs the eager training loop: a step's draws come from a
+with `--depth_conf` on a scene with depth precomputes the confidence
+maps on the device (`--tau`, `--conf_num`, the vgg mode with
+`--vgg_loss`; always, as train.py does, whatever `--precompute_conf`
+says), and runs the eager training loop: a step's draws come from a
 torch.Generator seeded `start_step + 1`, as train.py seeds its key, so a
 resumed run continues but does not repeat an uninterrupted one. Every
-`i_print` steps it prints and logs the loss, PSNR and rays/s; every
+`i_print` steps it prints and logs the loss, PSNR and rays/s, and the
+histograms of the pose rotations and the confidence lambdas; every
 `i_testset` it renders the first held-out view; every `i_weights` (and at
 the end) it saves a checkpoint, and the mip path also the pose stream.
+Products are float32 (TF32 off).
 
 Raises where the port has no counterpart yet: `--unroll_steps > 1` (the
 scanned multi-step loop; a CUDA-graph loop is later work, ROADMAP Queue
-1, item 1), `--tp > 1` (F, Queue 1, item 9), `--depth_conf` (D, Queue 1,
-item 3), a bf16 `--zip_compute_dtype` (B.2, Queue 1, item 6).
+1, item 1), `--tp > 1` (F, Queue 1, item 9), a bf16 `--zip_compute_dtype`
+(B.2, Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -79,9 +84,25 @@ def _log_step(logger, i, metrics, rays_done, t0):
   logger.scalars(i, {"rays_per_sec": rps, **m})
 
 
+def precompute_conf(tcfg, scene, dev_scene, device):
+  """The confidence maps of the train views (train.py:123-134), on the
+  device: [n_train, n_modes, H, W] uint8."""
+  from snerf_tpu_torch.models.confidence import precompute_conf_maps
+  from snerf_tpu_torch.models.features import make_feature_fn
+  feature_fn = (make_feature_fn(device=device)
+                if "vgg" in tcfg.conf_modes else None)
+  print(f"precomputing confidence maps ({tcfg.conf_modes}) ...")
+  conf_maps = precompute_conf_maps(tcfg.conf_modes, scene, dev_scene,
+                                   conf_num=tcfg.conf_num,
+                                   tau=tcfg.conf_tau, feature_fn=feature_fn)
+  print(f"conf maps: {tuple(conf_maps.shape)} {conf_maps.dtype}")
+  return conf_maps
+
+
 def main(argv=None):
   argv, extra = common.split_flags(argv, {"device": "cuda"})
   device = common.resolve_device(extra["device"])
+  common.float32_numerics()
   cfg = load_config(argv)
   _check_supported(cfg)
   snapshot_config(cfg)
@@ -111,9 +132,14 @@ def main(argv=None):
       start_step = restored
       print(f"resumed from step {start_step}")
 
+  conf_maps = None
+  if cfg.depth_conf and scene.depths is not None:
+    conf_maps = precompute_conf(tcfg, scene, dev_scene, device)
+
   logger = ExperimentLogger(exp_dir)
   step_fn = make_train_step(model, state.pose_model, tcfg, dev_scene,
-                            scene.i_train, scene.near, scene.far)
+                            scene.i_train, scene.near, scene.far,
+                            conf_maps=conf_maps)
   gen = torch.Generator(device=device).manual_seed(start_step + 1)
   render_fn = common.render_fn_for(cfg, model)
   prof = ProfileWindow(cfg, exp_dir, device)
@@ -124,6 +150,10 @@ def main(argv=None):
     rays_done += cfg.N_rgb
     if i % cfg.i_print == 0:
       _log_step(logger, i, metrics, rays_done, t0)
+      # the reference's histograms (train.py:225-241)
+      if state.conf_model is not None:
+        logger.histogram(i, "confidence_lambdas",
+                         state.conf_model.lambdas.detach().cpu().numpy())
       if state.pose_model is not None:
         logger.histogram(i, "pose_rotations",
                          state.pose_model.r.detach().cpu().numpy())

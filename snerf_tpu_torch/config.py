@@ -41,13 +41,21 @@ def model_config(cfg: Config) -> MipNerfConfig:
       semantic=cfg.semantic, semantic_class_num=cfg.semantic_class_num)
 
 
+def conf_modes(cfg: Config) -> tuple:
+  """The confidence modes of the flags (`Config.conf_modes()`): rgb, ssim
+  and depth, vgg with --vgg_loss (the seeded pyramid of
+  models/features.py when no weights are given), flow with --flow."""
+  modes = ["rgb", "ssim", "depth"]
+  if cfg.vgg_loss:
+    modes.append("vgg")
+  if cfg.flow:
+    modes.append("flow")
+  return tuple(modes)
+
+
 def train_config(cfg: Config) -> TrainConfig:
-  """TrainConfig as `Config.train_config()` builds it. The depth
-  confidence (--depth_conf: the confidence model and its VGG precompute)
-  is not ported yet and raises."""
-  if cfg.depth_conf:
-    raise NotImplementedError("depth_conf (the depth confidence model) is "
-                              "not ported yet; pass --depth_conf False")
+  """TrainConfig as `Config.train_config()` builds it, the depth
+  confidence's fields included (its tau is --tau)."""
   # imported here, as Config.train_config does: the trainer sits above
   # this layer
   from snerf_tpu_torch.train.trainer import TrainConfig
@@ -62,7 +70,9 @@ def train_config(cfg: Config) -> TrainConfig:
       patch_sz=cfg.patch_sz, proposal_loss=cfg.proposal_loss,
       proposal_lambda=cfg.proposal_lambda, semantic=cfg.semantic,
       semantic_lambda=cfg.semantic_lambda, pose_refine=cfg.pose_refine,
-      grad_max_norm=cfg.grad_max_norm, ema_decay=cfg.ema_decay)
+      grad_max_norm=cfg.grad_max_norm, depth_conf=cfg.depth_conf,
+      conf_num=cfg.conf_num, conf_tau=cfg.tau, conf_modes=conf_modes(cfg),
+      use_skymask_conf=cfg.skymask, ema_decay=cfg.ema_decay)
 
 
 def zip_model_config(cfg: Config) -> ZipNerfConfig:

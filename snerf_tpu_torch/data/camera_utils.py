@@ -5,8 +5,9 @@ and the render entry point need; that module's package imports jax).
 Reference: s-nerfpp/zipnerf/internal/camera_utils.py:162-203
 (transform_poses_pca with 1/10 scale cap), :24-133 (pad/unpad, focus
 point, ellipse path), s-nerf/dataloader/load_nuscenes.py:10-81 +
-utils/generate_renderpath.py:34-51 (spiral render path). The pose
-interpolation of the JAX module is not ported yet.
+utils/generate_renderpath.py:34-51 (spiral render path),
+zipnerf/internal/datasets.py:61-102 (pose interpolation and noise for
+the random render poses of data/waymo.py).
 """
 
 from __future__ import annotations
@@ -125,3 +126,94 @@ def average_pose(poses):
   vec2 = _normalize(poses[:, :3, 2].sum(0))
   up = poses[:, :3, 1].sum(0)
   return viewmatrix(vec2, up, center)
+
+
+# -------------------- pose interpolation (datasets.py:61-102) -------------
+
+
+def _mat_to_quat(m):
+  """Rotation matrix -> unit quaternion (w, x, y, z)."""
+  t = np.trace(m)
+  if t > 0:
+    s = np.sqrt(t + 1.0) * 2
+    w = 0.25 * s
+    x = (m[2, 1] - m[1, 2]) / s
+    y = (m[0, 2] - m[2, 0]) / s
+    z = (m[1, 0] - m[0, 1]) / s
+  else:
+    i = np.argmax([m[0, 0], m[1, 1], m[2, 2]])
+    if i == 0:
+      s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+      w, x = (m[2, 1] - m[1, 2]) / s, 0.25 * s
+      y, z = (m[0, 1] + m[1, 0]) / s, (m[0, 2] + m[2, 0]) / s
+    elif i == 1:
+      s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+      w, x = (m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s
+      y, z = 0.25 * s, (m[1, 2] + m[2, 1]) / s
+    else:
+      s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+      w, x = (m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s
+      y, z = (m[1, 2] + m[2, 1]) / s, 0.25 * s
+  q = np.array([w, x, y, z])
+  return q / np.linalg.norm(q)
+
+
+def _quat_to_mat(q):
+  w, x, y, z = q
+  return np.array([
+      [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+      [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+      [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+  ])
+
+
+def slerp(R0, R1, ratio):
+  q0, q1 = _mat_to_quat(R0), _mat_to_quat(R1)
+  dot = np.dot(q0, q1)
+  if dot < 0:
+    q1, dot = -q1, -dot
+  dot = np.clip(dot, -1, 1)
+  if dot > 0.9995:
+    q = q0 + ratio * (q1 - q0)
+  else:
+    theta = np.arccos(dot)
+    q = (np.sin((1 - ratio) * theta) * q0 +
+         np.sin(ratio * theta) * q1) / np.sin(theta)
+  return _quat_to_mat(q / np.linalg.norm(q))
+
+
+def interpolate_two_pose(pose_0, pose_1, ratio=0.5, fix_trans=False):
+  """Slerp rotations (in w2c space, as the reference does) + lerp
+  translation (datasets.py:61-87)."""
+  p0 = np.linalg.inv(_pad44(pose_0))
+  p1 = np.linalg.inv(_pad44(pose_1))
+  rot = slerp(p0[:3, :3], p1[:3, :3], ratio)
+  pose = np.eye(4, dtype=np.float32)
+  pose[:3, :3] = rot
+  pose[:3, 3] = p0[:3, 3] if fix_trans else \
+      ((1.0 - ratio) * p0 + ratio * p1)[:3, 3]
+  return np.linalg.inv(pose).astype(np.float32)
+
+
+def _pad44(p):
+  if p.shape == (4, 4):
+    return p
+  return np.concatenate([p, np.array([[0, 0, 0, 1.0]])], axis=0)
+
+
+def add_noise_to_pose(pose, dx, dy, dz, dx_theta, dy_theta,
+                      rng: np.random.RandomState):
+  """Bounded uniform translation + small euler rotations
+  (datasets.py:88-102)."""
+  pose = _pad44(pose).copy()
+  pose[0, 3] += rng.uniform(-dx, dx)
+  pose[1, 3] += rng.uniform(-dy, dy)
+  pose[2, 3] += rng.uniform(-dz, dz)
+  xt = np.deg2rad(rng.uniform(-dx_theta, dx_theta))
+  yt = np.deg2rad(rng.uniform(-dy_theta, dy_theta))
+  cx, sx = np.cos(xt), np.sin(xt)
+  cy, sy = np.cos(yt), np.sin(yt)
+  x_rot = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+  y_rot = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+  pose[:3, :3] = pose[:3, :3] @ y_rot @ x_rot
+  return pose.astype(np.float32)

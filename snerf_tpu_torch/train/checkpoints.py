@@ -6,7 +6,8 @@ and renamed into place, so a reader never sees half a file; the newest
 `keep` are kept. A file holds what restores a mip `TrainState` or a
 `ZipTrainState` bit for bit: the model's state_dict, the optimizer's
 (every group's Adam moments and step counts), the step, the pose model
-and its optimizer, and the EMA copy. Files load with
+and its optimizer, the confidence model (its lambdas) and its optimizer,
+and the EMA copy. Files load with
 `torch.load(weights_only=True)` onto the CPU, then into the state's own
 tensors, so a checkpoint saved on one device restores on another. The
 pose table also has its own stream under <exp_dir>/pose.
@@ -63,20 +64,26 @@ def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
   return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
 
+def _opt_cpu(optimizer) -> Dict[str, Any]:
+  sd = optimizer.state_dict()
+  return {"state": {i: _cpu(s) for i, s in sd["state"].items()},
+          "param_groups": sd["param_groups"]}
+
+
+# (module, its optimizer) pairs a state may hold besides the model; the
+# zip state has no confidence model
+_PARTS = (("pose_model", "pose_optimizer"), ("conf_model", "conf_optimizer"))
+
+
 def state_payload(state) -> Dict[str, Any]:
   """A TrainState or ZipTrainState as a dict of CPU tensor copies and
   plain values."""
-  opt = state.optimizer.state_dict()
   payload = {"step": int(state.step), "model": _cpu(state.model.state_dict()),
-             "optimizer": {"state": {i: _cpu(s) for i, s in
-                                     opt["state"].items()},
-                           "param_groups": opt["param_groups"]}}
-  if state.pose_model is not None:
-    payload["pose_model"] = _cpu(state.pose_model.state_dict())
-    popt = state.pose_optimizer.state_dict()
-    payload["pose_optimizer"] = {
-        "state": {i: _cpu(s) for i, s in popt["state"].items()},
-        "param_groups": popt["param_groups"]}
+             "optimizer": _opt_cpu(state.optimizer)}
+  for part, opt in _PARTS:
+    if getattr(state, part, None) is not None:
+      payload[part] = _cpu(getattr(state, part).state_dict())
+      payload[opt] = _opt_cpu(getattr(state, opt))
   if state.ema is not None:
     payload["ema"] = _cpu(state.ema)
   return payload
@@ -98,17 +105,18 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None
     return state, None
   payload = torch.load(_path(ckpt_dir, step), map_location="cpu",
                        weights_only=True)
-  missing = [k for k in ("pose_model", "ema")
-             if (getattr(state, k) is None) != (k not in payload)]
+  missing = [k for k in ("pose_model", "conf_model", "ema")
+             if (getattr(state, k, None) is None) != (k not in payload)]
   if missing:
     raise ValueError(f"checkpoint and state disagree on {missing}: was the "
                      "checkpoint made with other flags?")
   state.model.load_state_dict(payload["model"])
   # Optimizer.load_state_dict casts the moments onto each param's device
   state.optimizer.load_state_dict(payload["optimizer"])
-  if state.pose_model is not None:
-    state.pose_model.load_state_dict(payload["pose_model"])
-    state.pose_optimizer.load_state_dict(payload["pose_optimizer"])
+  for part, opt in _PARTS:
+    if getattr(state, part, None) is not None:
+      getattr(state, part).load_state_dict(payload[part])
+      getattr(state, opt).load_state_dict(payload[opt])
   if state.ema is not None:
     with torch.no_grad():
       for k, v in payload["ema"].items():

@@ -3,19 +3,26 @@
 One step: refine the pose table, sample a ray batch on the device, run
 the randomized forward, sum the loss set (rgb, proposal, smoothness,
 semantic, depth), backpropagate (through K1's backward kernels on the
-card), clip if asked, and apply Adam to the model (log-lerp schedule)
-and to the poses (constant lr), then the optional EMA. The JAX step is
-one jitted function of a PRNG key; here the step runs eagerly and its
-random draws come from a torch.Generator or are injected (`StepDraws`).
+card), clip if asked, and apply Adam to the model (log-lerp schedule),
+to the poses and to the confidence weights (constant lrs), then the
+optional EMA. The JAX step is one jitted function of a PRNG key; here
+the step runs eagerly and its random draws come from a torch.Generator
+or are injected (`StepDraws`).
+
+With `depth_conf` the depth loss is weighted per ray by the depth
+confidence: the precomputed maps (`models/confidence.py`
+`precompute_conf_maps`, uint8) at the ray's pixel, mixed by
+sigmoid(lambda[mode, image]) of the state's `ConfidenceModel`, sky rays
+at 1 when `use_skymask_conf`.
 
 Adam matches optax's `adam`: betas (0.9, 0.999), eps 1e-8 outside the
-square root, bias correction at the incremented count, and the schedule
-read at the count before the increment (the lr of step 0 is
-lrate * lrate_delay_mult).
+square root, bias correction at the incremented count (in float64,
+where optax forms it in float32: up to ~3e-5 relative on a first
+update), and the schedule read at the count before the increment (the
+lr of step 0 is lrate * lrate_delay_mult).
 
-Not ported: the depth confidence (`depth_conf`, raises), the classic
-model's coarse rgb term, mesh sharding and the `lax.scan` multi-step loop
-(a CUDA-graph loop is later work).
+Not ported: the classic model's coarse rgb term, mesh sharding and the
+`lax.scan` multi-step loop (a CUDA-graph loop is later work).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Dict, Optional
 import torch
 
 from snerf_tpu_torch.data import sampler
+from snerf_tpu_torch.models.confidence import ConfidenceModel
 from snerf_tpu_torch.models.mipnerf import (MipDraws, MipNerfConfig,
                                             MipNerfModel, make_draws)
 from snerf_tpu_torch.models.posenet import LearnPose
@@ -64,8 +72,13 @@ class TrainConfig:
   # pose refinement
   pose_refine: bool = False
   pose_lrate: float = 1e-3
-  # depth confidence: not ported, True raises
+  # depth confidence (reference --depth_conf; confidence.py:171-185)
   depth_conf: bool = False
+  conf_num: int = 1
+  conf_tau: float = 0.2
+  conf_lrate: float = 1e-3
+  conf_modes: tuple = ("rgb", "ssim", "depth")
+  use_skymask_conf: bool = True
   # grad hygiene
   grad_max_norm: float = 0.0
   grad_max_val: float = 0.0
@@ -83,6 +96,8 @@ class TrainState:
   pose_model: Optional[LearnPose] = None
   pose_optimizer: Optional[torch.optim.Adam] = None
   ema: Optional[Dict[str, torch.Tensor]] = None
+  conf_model: Optional[ConfidenceModel] = None
+  conf_optimizer: Optional[torch.optim.Adam] = None
 
 
 @dataclasses.dataclass
@@ -111,20 +126,14 @@ def adam(params, lr: float) -> torch.optim.Adam:
   return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _check_supported(cfg: TrainConfig):
-  if cfg.depth_conf:
-    raise NotImplementedError("depth_conf (the depth confidence model) is "
-                              "not ported yet")
-
-
 def create_train_state(seed: int, model_cfg: MipNerfConfig,
                        cfg: TrainConfig, num_images: int, init_poses=None,
                        device="cuda"):
   """A seeded model (glorot init), the pose model when pose_refine (its
-  tables start at zero; init_poses is not read, as in the JAX version)
-  and their optimizers. Returns (model, pose_model, state)."""
+  tables start at zero; init_poses is not read, as in the JAX version),
+  the confidence model when depth_conf (its lambdas start at zero) and
+  their optimizers. Returns (model, pose_model, state)."""
   del init_poses
-  _check_supported(cfg)
   model = glorot_init_(MipNerfModel(model_cfg, device=device), seed)
   state = TrainState(step=0, model=model,
                      optimizer=adam(model.parameters(),
@@ -136,6 +145,11 @@ def create_train_state(seed: int, model_cfg: MipNerfConfig,
     pose_model = LearnPose(num_images, device=device)
     state.pose_model = pose_model
     state.pose_optimizer = adam(pose_model.parameters(), cfg.pose_lrate)
+  if cfg.depth_conf:
+    state.conf_model = ConfidenceModel(cfg.conf_modes, num_images,
+                                       device=device)
+    state.conf_optimizer = adam(state.conf_model.parameters(),
+                                cfg.conf_lrate)
   return model, pose_model, state
 
 
@@ -155,14 +169,18 @@ def draw_step(model_cfg: MipNerfConfig, cfg: TrainConfig,
 
 def make_train_step(model: MipNerfModel, pose_model: Optional[LearnPose],
                     cfg: TrainConfig, device_scene: Dict[str, torch.Tensor],
-                    i_train, near: float, far: float):
+                    i_train, near: float, far: float,
+                    conf_maps: Optional[torch.Tensor] = None):
   """Build step(state, generator=None, draws=None) -> metrics.
 
   Each step draws from `generator` (a torch.Generator on the scene's
   device) unless `draws` (a StepDraws) is given. The metrics are
   detached scalar tensors: loss, loss_rgb, psnr and one per active loss.
+  conf_maps: [n_train, n_modes, H, W] uint8 confidence maps (those of
+  `precompute_conf_maps`) on the scene's device, read under depth_conf
+  with the state's `conf_model`; without them the depth loss is
+  unweighted.
   """
-  _check_supported(cfg)
   init_poses = device_scene["poses"]
   num_images = init_poses.shape[0]
   cam_ids = torch.arange(num_images, device=init_poses.device)
@@ -170,8 +188,35 @@ def make_train_step(model: MipNerfModel, pose_model: Optional[LearnPose],
                             device=init_poses.device)
   n_patches = cfg.n_patch if cfg.smooth_loss else 0
   lr_at = make_lr_schedule(cfg)
+  i_train_pos = None
+  if cfg.depth_conf and conf_maps is not None:
+    want = (len(i_train), len(cfg.conf_modes))
+    if (tuple(conf_maps.shape[:2]) != want
+        or conf_maps.dtype != torch.uint8):
+      raise ValueError(f"conf_maps {tuple(conf_maps.shape)} "
+                       f"{conf_maps.dtype}: expected uint8 with "
+                       f"[n_train, n_modes] = {list(want)} leading, modes "
+                       f"{cfg.conf_modes}")
+    # image id -> its position in i_train, the row of conf_maps
+    i_train_pos = torch.zeros(num_images, dtype=torch.long,
+                              device=init_poses.device)
+    i_train_pos[i_train] = torch.arange(len(i_train),
+                                        device=init_poses.device)
 
-  def loss_fn(draws: StepDraws):
+  def conf_weight(conf_model: ConfidenceModel, targets, draws: StepDraws):
+    """The depth confidence of the step's n_rgb rays."""
+    nr = cfg.n_rgb
+    img_idx = draws.img_idx[:nr]
+    # advanced indices around a slice: the ray axis comes first
+    stack = conf_maps[i_train_pos[img_idx], :, draws.py[:nr],
+                      draws.px[:nr]].float() / 255.0
+    w = conf_model.combine(stack.T, img_idx)
+    if cfg.use_skymask_conf and "skymask" in targets:
+      # sky rays get confidence 1 (confidence.py:199-201)
+      w = torch.where(targets["skymask"][:nr], torch.ones_like(w), w)
+    return w
+
+  def loss_fn(draws: StepDraws, conf_model: Optional[ConfidenceModel]):
     pose_table = init_poses
     if pose_model is not None:
       pose_table = pose_model(cam_ids, init_poses)
@@ -216,9 +261,14 @@ def make_train_step(model: MipNerfModel, pose_model: Optional[LearnPose],
       metrics["loss_semantic"] = sem_loss
 
     if cfg.depth_loss and "depth" in targets:
+      # depth 0 is masked out; sky pixels keep their clipped target
+      weight = None
+      if i_train_pos is not None and conf_model is not None:
+        weight = conf_weight(conf_model, targets, draws)
       dl = L.depth_loss(fine["distance"][:nr], coarse["distance"][:nr],
                         targets["depth"][:nr], disparity=cfg.disparity_depth,
-                        coarse_mult=cfg.coarse_depth_mult)
+                        coarse_mult=cfg.coarse_depth_mult,
+                        conf_weight=weight)
       total = total + dl * cfg.depth_lambda
       metrics["loss_depth"] = dl
 
@@ -233,10 +283,10 @@ def make_train_step(model: MipNerfModel, pose_model: Optional[LearnPose],
       draws = draw_step(model.config, cfg, device_scene["images"], i_train,
                         generator)
     params = list(model.parameters())
-    pose_params = [] if pose_model is None else list(pose_model.parameters())
-    for p in params + pose_params:
+    others = [m for m in (pose_model, state.conf_model) if m is not None]
+    for p in params + [p for m in others for p in m.parameters()]:
       p.grad = None
-    total, metrics = loss_fn(draws)
+    total, metrics = loss_fn(draws, state.conf_model)
     total.backward()
 
     if cfg.grad_max_val > 0 or cfg.grad_max_norm > 0:
@@ -257,6 +307,8 @@ def make_train_step(model: MipNerfModel, pose_model: Optional[LearnPose],
           state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
     if pose_model is not None:
       state.pose_optimizer.step()
+    if state.conf_model is not None:
+      state.conf_optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
   return step

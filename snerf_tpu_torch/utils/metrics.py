@@ -101,19 +101,23 @@ def ms_ssim(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0,
 
 
 class MetricHarness:
-  """PSNR + SSIM pair (zipnerf image.py:110-125 parity). LPIPS needs the
-  VGG feature pyramid (models/features.py), which comes with the depth
-  confidence (ROADMAP Queue 1, item 3): lpips=True raises until then."""
+  """PSNR + SSIM pair (zipnerf image.py:110-125 parity), and with
+  lpips=True the mean of the VGG feature distance of models/features.py
+  (the seeded pyramid: a relative perceptual distance, not calibrated
+  LPIPS), its weights on `device`, where the images must lie."""
 
-  def __init__(self, lpips: bool = False):
+  def __init__(self, lpips: bool = False, device="cuda"):
+    self._lpips_fn = None
     if lpips:
-      raise NotImplementedError(
-          "--lpips needs models/features.py (the VGG pyramid), not ported "
-          "yet (ROADMAP Queue 1, item 3)")
+      from snerf_tpu_torch.models.features import make_feature_fn
+      self._lpips_fn = make_feature_fn(device=device)
 
   def __call__(self, rgb_pred: torch.Tensor, rgb_gt: torch.Tensor):
-    return {"psnr": float(psnr(rgb_pred, rgb_gt)),
-            "ssim": float(ssim(rgb_pred, rgb_gt))}
+    out = {"psnr": float(psnr(rgb_pred, rgb_gt)),
+           "ssim": float(ssim(rgb_pred, rgb_gt))}
+    if self._lpips_fn is not None:
+      out["lpips"] = float(torch.mean(self._lpips_fn(rgb_pred, rgb_gt)))
+    return out
 
 
 def kitti_depth_metrics(pred, gt, min_depth: float = 1e-3,

@@ -5,8 +5,9 @@ snerf_tpu/utils/ref_import.py).
 package's mip and zip parameter trees (as numpy arrays) onto the port's
 state_dicts: the inverses of `snerf_tpu.utils.ref_import`'s
 `map_mip_state_dict` and `map_zip_state_dict`. `pose_params_from_flax`
-and `train_state_from_flax` carry a JAX mip train state's model and pose
-params across, `zip_train_state_from_flax` a zip train state's.
+and `train_state_from_flax` carry a JAX mip train state's model, pose
+and confidence params across, `zip_train_state_from_flax` a zip train
+state's.
 `glorot_init_` and `zip_init_` are the port's own seeded inits, for
 machines without JAX.
 """
@@ -67,13 +68,20 @@ def pose_params_from_flax(pose_params: Dict[str, Any]
           for k in ("r", "t")}
 
 
-def train_state_from_flax(params: Dict[str, Any], pose_params=None):
-  """A JAX train state's `params` (and `pose_params`, or None) -> the
-  state_dicts (model, pose model or None) to load into the port's
-  `create_train_state` models, so that both start from the same
-  numbers."""
-  return (state_dict_from_flax(params),
-          None if pose_params is None else pose_params_from_flax(pose_params))
+def train_state_from_flax(state, params: Dict[str, Any], pose_params=None,
+                          conf_params=None):
+  """Load a JAX mip train state's `params` (and `pose_params`,
+  `conf_params`, or None), as numpy trees, into the port's TrainState
+  (from `create_train_state`) in place, so that both start from the same
+  numbers: the model, the pose model and the confidence model's
+  `lambdas`. Returns the state."""
+  state.model.load_state_dict(state_dict_from_flax(params))
+  if pose_params is not None:
+    state.pose_model.load_state_dict(pose_params_from_flax(pose_params))
+  if conf_params is not None:
+    state.conf_model.load_state_dict({"lambdas": torch.from_numpy(
+        np.array(conf_params["lambdas"], np.float32))})
+  return state
 
 
 def zip_train_state_from_flax(state, params: Dict[str, Any],

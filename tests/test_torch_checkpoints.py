@@ -1,11 +1,13 @@
 """The port's checkpoints (snerf_tpu_torch/train/checkpoints.py): a mip
-TrainState and a ZipTrainState, each with its pose model and EMA, trained
-two steps, saved, and restored into a state made from another seed come
-back bit for bit (model params, every Adam moment and step count, the
-step, the pose table and its optimizer, the EMA), and the next step from
-either is bit-identical. Keep-k pruning, latest_step, the pose stream
-and the flag mismatch error. CPU, tiny widths."""
+TrainState (also with the depth confidence on) and a ZipTrainState, each
+with its pose model and EMA, trained two steps, saved, and restored into
+a state made from another seed come back bit for bit (model params,
+every Adam moment and step count, the step, the pose table and its
+optimizer, the confidence lambdas and their optimizer, the EMA), and the
+next step from either is bit-identical. Keep-k pruning, latest_step, the
+pose stream and the flag mismatch error. CPU, tiny widths."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -43,6 +45,21 @@ def _mip(scene, seed):
   step = trainer.make_train_step(model, pose, MIP_TRAIN,
                                  scene_to_device(scene, "cpu"),
                                  scene.i_train, scene.near, scene.far)
+  return state, step
+
+
+def _mip_conf(scene, seed):
+  """The mip state with the depth confidence on, on seeded uint8 maps."""
+  cfg = dataclasses.replace(MIP_TRAIN, depth_conf=True,
+                            conf_modes=("rgb", "depth"))
+  model, pose, state = trainer.create_train_state(
+      seed, MIP, cfg, scene.num_images, device="cpu")
+  maps = torch.from_numpy(np.random.RandomState(4).randint(
+      0, 256, (len(scene.i_train), 2, 8, 8)).astype(np.uint8))
+  step = trainer.make_train_step(model, pose, cfg,
+                                 scene_to_device(scene, "cpu"),
+                                 scene.i_train, scene.near, scene.far,
+                                 conf_maps=maps)
   return state, step
 
 
@@ -85,15 +102,18 @@ def _gen(seed):
   return torch.Generator().manual_seed(seed)
 
 
-@pytest.mark.parametrize("family", ["mip", "zip"])
+@pytest.mark.parametrize("family", ["mip", "zip", "mip_conf"])
 def test_round_trip_bit_equal(tmp_path, scene, family):
-  make = _mip if family == "mip" else _zip
+  make = {"mip": _mip, "zip": _zip, "mip_conf": _mip_conf}[family]
   state, step = make(scene, 0)
   gen = _gen(1)
   for _ in range(2):
     step(state, gen)
   assert state.step == 2 and state.ema is not None
   assert state.pose_model is not None
+  if family == "mip_conf":
+    assert float(state.conf_model.lambdas.detach().abs().max()) > 0
+    assert set(C.state_payload(state)) >= {"conf_model", "conf_optimizer"}
   ckpt = str(tmp_path / "ckpt")
   C.save_checkpoint(ckpt, state, state.step)
   assert C.latest_step(ckpt) == 2
@@ -152,3 +172,6 @@ def test_flag_mismatch_raises(tmp_path, scene):
       0, MIP, trainer.TrainConfig(n_rgb=32), scene.num_images, device="cpu")
   with pytest.raises(ValueError, match="pose_model"):
     C.restore_checkpoint(str(tmp_path), no_pose)
+  conf_state, _ = _mip_conf(scene, 0)
+  with pytest.raises(ValueError, match="conf_model"):
+    C.restore_checkpoint(str(tmp_path), conf_state)

@@ -5,6 +5,11 @@
   widths, `--device cpu`: checkpoints, the resume, the snapshot, every
   output file of eval.py and render.py, a falling loss; the zip model
   likewise; the profile window.
+- The shipped nuScenes_depth_6cams on the fixture with the depth
+  confidence on (the vgg mode included), and eval with --lpips.
+- configs/waymo_zipnerf on a tiny Waymo layout (dataset_type waymo):
+  train, eval of the train views, and render --render_mode random, whose
+  poses are the JAX package's for the same scene and seed.
 - What has no port yet raises, and without a card the entry points
   raise instead of running on the CPU.
 
@@ -56,12 +61,26 @@ def _log(exp):
     return [json.loads(line) for line in f]
 
 
+def _tf32_on():
+  torch.backends.cuda.matmul.allow_tf32 = True
+  torch.backends.cudnn.allow_tf32 = True
+
+
+def _tf32():
+  return (torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32)
+
+
 def test_mip_train_resume_eval_render_synthetic(tmp_path):
+  """Train, resume, eval and render; train and eval turn TF32 off (the
+  card's products are then f32, as the JAX package's on the CPU)."""
   base = str(tmp_path)
   flags = ["--config", TINY, "--basedir", base, *MIP_NARROW,
            "--i_weights", "10", "--i_print", "10", "--i_testset", "10"]
   args = flags + CPU
+  _tf32_on()
   state = cli_train.main(args + ["--N_iters", "20"])
+  assert _tf32() == (False, False)
   exp = os.path.join(base, "synthetic_tiny")
   ckpt_dir = os.path.join(exp, "checkpoints")
   assert state.step == 20 and ckpt_lib.latest_step(ckpt_dir) == 20
@@ -81,7 +100,9 @@ def test_mip_train_resume_eval_render_synthetic(tmp_path):
   assert losses[-1] < losses[0]
   assert len([e for e in logged if "test_psnr" in e]) == 3
 
+  _tf32_on()
   summary = cli_eval.main(["--config", TINY, "--basedir", base, *CPU])
+  assert _tf32() == (False, False)
   out = os.path.join(exp, "testset_000030")
   with open(os.path.join(out, "metrics.json")) as f:
     on_disk = json.load(f)
@@ -111,21 +132,28 @@ def test_mip_train_resume_eval_render_synthetic(tmp_path):
   assert os.listdir(os.path.join(rdir, "rgb")) == ["00000.png"]
 
 
-def test_mip_realfocal_fixture_and_pose_refinement(tmp_path):
+def test_mip_realfocal_fixture_and_pose_refinement(tmp_path, capsys):
+  """The shipped config with its depth confidence (rgb, ssim, depth, vgg)
+  precomputed; eval with pose refinement and --lpips."""
   base = str(tmp_path)
   common_args = ["--config", os.path.join(REPO, "configs",
                                           "nuScenes_depth_6cams"),
                  "--datadir", FIXTURE, "--basedir", base, *CPU]
-  cli_train.main(common_args + [*MIP_NARROW, "--depth_conf", "False",
-                                "--vgg_loss", "False", "--N_rgb", "64",
-                                "--N_iters", "4", "--i_weights", "4",
-                                "--i_print", "2", "--datahold", "12"])
+  state = cli_train.main(common_args + [
+      *MIP_NARROW, "--N_rgb", "64", "--N_iters", "4", "--i_weights", "4",
+      "--i_print", "2", "--datahold", "12", "--lrate_delay", "0"])
+  # half_train: 22 of the 44 train views; 4 modes at 96 x 128
+  assert "conf maps: (22, 4, 96, 128) torch.uint8" in capsys.readouterr().out
+  assert state.conf_model.modes == ("rgb", "ssim", "depth", "vgg")
+  assert float(state.conf_model.lambdas.detach().abs().max()) > 0
   exp = os.path.join(base, "scene_0916")
   assert ckpt_lib.restore_pose_checkpoint(exp)[1] == 4
-  summary = cli_eval.main(common_args + ["--test_refine_iter", "2"])
+  summary = cli_eval.main(common_args + ["--test_refine_iter", "2",
+                                         "--lpips", "True"])
   # datahold 12 over 48 views; the snapshot supplied it and the widths
   assert [r["img"] for r in summary["per_image"]] == [0, 12, 24, 36]
   assert np.isfinite(summary["mean_psnr"])
+  assert all(r["lpips"] > 0 for r in summary["per_image"])
   rdir = cli_render.main(common_args + ["--render_mode", "path",
                                         "--render_n", "1"])
   assert read_png(os.path.join(rdir, "rgb", "00000.png")).shape == (96, 128,
@@ -151,6 +179,49 @@ def test_zip_train_eval_render_and_profile(tmp_path):
   assert os.listdir(os.path.join(rdir, "depth")) == ["00000.png"]
 
 
+def test_waymo_zip_train_eval_and_random_render(tmp_path):
+  from snerf_tpu.data import waymo as jw
+  from test_torch_waymo import write_layout
+  data = write_layout(str(tmp_path / "waymo"), 19, 27)
+  base = str(tmp_path / "exp")
+  args = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf"),
+          "--datadir", data, "--basedir", base, *CPU]
+  # the 19 semantic classes are read from the bottleneck: 32 wide
+  state = cli_train.main(args + [*ZIP_NARROW, "--zip_max_steps", "3",
+                                 "--i_print", "1", "--zip_patch_size", "4",
+                                 "--zip_bottleneck_width", "32"])
+  assert state.step == 3
+  exp = os.path.join(base, "waymo_zip")
+  assert all(np.isfinite(e["loss"]) for e in _log(exp) if "loss" in e)
+  # a Waymo scene holds no test split: evaluate the train views
+  summary = cli_eval.main(args + ["--eval_test", "False"])
+  assert len(summary["per_image"]) == 8 and np.isfinite(
+      summary["mean_psnr"])
+  rdir = cli_render.main(args + ["--render_mode", "random", "--render_n",
+                                 "2", "--render_seed", "3"])
+  for sub, ext in (("rgb", "png"), ("depth", "png"), ("semantic", "npy")):
+    assert sorted(os.listdir(os.path.join(rdir, sub))) == [
+        f"00000.{ext}", f"00001.{ext}"]
+  assert read_png(os.path.join(rdir, "rgb", "00001.png")).shape == (19, 27,
+                                                                    3)
+  depth = read_png(os.path.join(rdir, "depth", "00000.png"))
+  assert depth.dtype == np.uint16 and depth.shape == (19, 27)
+  assert np.load(os.path.join(rdir, "semantic", "00000.npy")).shape == (19,
+                                                                        27)
+  # the poses of render.py's random mode on the JAX loader's scene
+  jscene = jw.load_waymo_scene(data)
+  hw = np.array(jscene.hw)
+  want = jw.generate_random_render_poses(
+      jscene.poses, jscene.intrinsics[0], jscene.intrinsics[-1], hw, hw,
+      jscene.scale, n_render=2, seed=3)
+  raw = jw.render2raw(want.poses, jscene.pca_transform, jscene.scale,
+                      np.eye(4))
+  for name, arr in (("render_poses", want.poses), ("intrinsic",
+                                                   want.intrinsics),
+                    ("raw_target_poses", raw)):
+    assert np.array_equal(np.load(os.path.join(rdir, f"{name}.npy")), arr)
+
+
 def test_unported_paths_raise(tmp_path):
   base = ["--config", TINY, "--basedir", str(tmp_path), *MIP_NARROW]
   if not torch.cuda.is_available():
@@ -159,21 +230,15 @@ def test_unported_paths_raise(tmp_path):
         main(base)
   for extra, match in ((["--unroll_steps", "2"], "Queue 1, item 1"),
                        (["--tp", "2"], "Queue 1, item 9"),
-                       (["--dataset_type", "waymo"], "data/waymo.py"),
+                       (["--dataset_type", "llff"], "data/llff.py"),
                        (["--model", "classic"], "classic"),
                        (["--encode_appearance", "True"], "encode_appearance")):
     with pytest.raises(NotImplementedError, match=match):
       cli_train.main(base + CPU + extra + ["--N_iters", "1"])
-  nus = ["--config", os.path.join(REPO, "configs", "nuScenes_depth_6cams"),
-         "--datadir", FIXTURE, "--basedir", str(tmp_path), *CPU]
-  with pytest.raises(NotImplementedError, match="depth_conf"):
-    cli_train.main(nus)
   with pytest.raises(NotImplementedError, match="B.2"):
     cli_train.main(["--config", TINY, "--basedir", str(tmp_path), *CPU,
                     "--model", "zipnerf"])
   with pytest.raises(NotImplementedError, match="scan render"):
     cli_eval.main(base + CPU + ["--scan_render", "True"])
-  with pytest.raises(NotImplementedError, match="data/waymo.py"):
-    cli_render.main(base + CPU + ["--render_mode", "random"])
-  with pytest.raises(NotImplementedError, match="features.py"):
-    cli_eval.main(base + CPU + ["--lpips", "True"])
+  with pytest.raises(ValueError, match="--render_mode"):
+    cli_render.main(base + CPU + ["--render_mode", "orbit"])

@@ -90,12 +90,9 @@ def test_eval_matches_jax_on_jax_weights(tmp_path, family):
                                        jcfg.model_config(),
                                        jcfg.train_config(), n)
     params = _np(jstate.params)
-    sd, pose_sd = train_state_from_flax(
-        params, None if jstate.pose_params is None
+    train_state_from_flax(
+        state, params, None if jstate.pose_params is None
         else _np(jstate.pose_params))
-    state.model.load_state_dict(sd)
-    if pose_sd is not None:
-      state.pose_model.load_state_dict(pose_sd)
     render_fn = jrenderer.make_eval_render_fn(model, params,
                                               white_bkgd=jcfg.white_bkgd)
   else:

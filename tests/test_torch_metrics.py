@@ -77,14 +77,21 @@ def test_ms_ssim_matches_jax():
 
 
 def test_metric_harness():
+  """PSNR and SSIM, then with lpips=True the mean VGG feature distance of
+  the seeded pyramid (an odd 37 x 53 pair), within TOL relative."""
   a, b = _pair(5)
   got = tm.MetricHarness()(torch.from_numpy(a), torch.from_numpy(b))
   want = jm.MetricHarness()(jnp.asarray(a), jnp.asarray(b))
   assert set(got) == set(want) == {"psnr", "ssim"}
   assert abs(got["psnr"] - want["psnr"]) <= TOL * abs(want["psnr"])
   assert abs(got["ssim"] - want["ssim"]) <= TOL
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    tm.MetricHarness(lpips=True)
+  a, b = _pair(8, shape=(37, 53, 3))
+  got = tm.MetricHarness(lpips=True, device="cpu")(torch.from_numpy(a),
+                                                   torch.from_numpy(b))
+  want = jm.MetricHarness(lpips=True)(jnp.asarray(a), jnp.asarray(b))
+  assert set(got) == set(want) == {"psnr", "ssim", "lpips"}
+  assert want["lpips"] > 0
+  assert abs(got["lpips"] - want["lpips"]) <= TOL * want["lpips"]
 
 
 def test_kitti_depth_metrics_equal():

@@ -1,5 +1,6 @@
-"""The port (the mip and zip render paths, both train steps and the
-entry points on the realfocal fixture) runs where JAX, imageio, cv2,
+"""The port (the mip and zip render paths, both train steps, the mip one
+with the depth confidence, and the entry points on the realfocal fixture
+with the confidence and --lpips) runs where JAX, imageio, cv2,
 PIL and TensorBoard are absent, as on the card's machine, and loads no
 module of snerf_tpu; chip_smoke.py refuses to run without a CUDA card
 (each in a fresh interpreter)."""
@@ -66,15 +67,22 @@ from snerf_tpu_torch.data.sampler import scene_to_device
 from snerf_tpu_torch.train.trainer import create_train_state, make_train_step
 
 tflags = load_config(["--config", "configs/nuScenes_depth_6cams",
-                      "--depth_conf", "False", "--hidden_layer", "128",
+                      "--hidden_layer", "128",
                       "--proposal_hidden_layer", "128", "--N_samples", "8",
                       "--N_fine", "8", "--N_rgb", "16"])
 tcfg = train_config(tflags)
-tscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
+# 12 x 12: the SSIM mode's 11-pixel window fits
+tscene = make_synthetic_scene(num_images=3, H=12, W=12, n_render_samples=8)
 tmodel, tpose, tstate = create_train_state(0, model_config(tflags), tcfg,
                                            tscene.num_images, device="cpu")
-tstep = make_train_step(tmodel, tpose, tcfg, scene_to_device(tscene, "cpu"),
-                        tscene.i_train, tscene.near, tscene.far)
+from snerf_tpu_torch.models.confidence import precompute_conf_maps
+from snerf_tpu_torch.models.features import make_feature_fn
+tdev = scene_to_device(tscene, "cpu")
+conf_maps = precompute_conf_maps(tcfg.conf_modes, tscene, tdev,
+                                 feature_fn=make_feature_fn(device="cpu"))
+assert conf_maps.shape == (len(tscene.i_train), 4, 12, 12), conf_maps.shape
+tstep = make_train_step(tmodel, tpose, tcfg, tdev, tscene.i_train,
+                        tscene.near, tscene.far, conf_maps=conf_maps)
 gen = torch.Generator().manual_seed(0)
 tlosses = [float(tstep(tstate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in tlosses), tlosses
@@ -114,12 +122,12 @@ fixture = ["--config", "configs/nuScenes_depth_6cams", "--datadir",
            "tests/fixtures/nuscenes_realfocal", "--basedir", base,
            "--device", "cpu"]
 sys.argv = ["train"] + fixture + [
-    "--depth_conf", "False", "--vgg_loss", "False", "--hidden_layer", "16",
+    "--hidden_layer", "16",
     "--proposal_hidden_layer", "16", "--N_samples", "8", "--N_fine", "8",
     "--N_rgb", "32", "--N_iters", "2", "--i_weights", "2", "--i_print", "1",
     "--datahold", "16"]
 runpy.run_module("snerf_tpu_torch.cli.train", run_name="__main__")
-sys.argv = ["eval"] + fixture
+sys.argv = ["eval"] + fixture + ["--lpips", "True"]
 runpy.run_module("snerf_tpu_torch.cli.eval", run_name="__main__")
 assert os.path.isfile(os.path.join(base, "scene_0916", "testset_000002",
                                    "metrics.json"))
@@ -128,6 +136,8 @@ jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "flax", "snerf_tpu", "imageio",
                         "cv2", "PIL", "tensorboard")))
 assert jax_side == [], jax_side
+for name in ("models.confidence", "models.features", "data.waymo"):
+  assert "snerf_tpu_torch." + name in sys.modules, name
 print("RENDERED", tuple(out["rgb"].shape))
 """
 

@@ -130,10 +130,7 @@ def _port_state(jstate, scene, tdev):
   model, pose, state = trainer.create_train_state(1, mcfg, tcfg,
                                                   scene.num_images,
                                                   device="cpu")
-  model_sd, pose_sd = train_state_from_flax(_np(jstate.params),
-                                            _np(jstate.pose_params))
-  model.load_state_dict(model_sd)
-  pose.load_state_dict(pose_sd)
+  train_state_from_flax(state, _np(jstate.params), _np(jstate.pose_params))
   state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
   step = trainer.make_train_step(model, pose, tcfg, tdev, scene.i_train,
                                  scene.near, scene.far)
@@ -300,29 +297,105 @@ def test_adam_matches_optax():
                                atol=5e-5 * scale, err_msg=f"step {i}")
 
 
+CONF_MODES = ("rgb", "ssim", "depth")
+
+
+def test_one_step_with_depth_conf_matches_jax():
+  """One step with the depth confidence on, the maps injected (seeded
+  uint8, the precompute has its own tests) and random lambdas on both
+  sides, a sky mask on the scene: loss and each metric within 1e-5
+  relative; the lambdas after the step within 1e-4 relative, the room
+  for the bias correction optax forms in float32 (ROADMAP Queue 3, item
+  3: ~3e-5 of a first update); only the sampled image's column moves."""
+  scene = synthetic.make_synthetic_scene(num_images=6, H=H, W=W,
+                                         n_render_samples=16)
+  jscene = jsynthetic.make_synthetic_scene(num_images=6, H=H, W=W,
+                                           n_render_samples=16)
+  sky = scene.depths > np.quantile(scene.depths, 0.8)
+  scene.skymask, jscene.skymask = sky, sky.copy()
+  rng = np.random.RandomState(3)
+  maps = rng.randint(0, 256, (len(scene.i_train), len(CONF_MODES), H, W)
+                     ).astype(np.uint8)
+  lambdas = rng.randn(len(CONF_MODES), scene.num_images).astype(np.float32)
+  jdev = jsampler.scene_to_device(jscene)
+  train = dict(TRAIN, depth_conf=True, conf_modes=CONF_MODES)
+  jtcfg, jmcfg = jtrainer.TrainConfig(**train), JaxModelConfig(**MODEL)
+  jstate = jax.jit(lambda k: jtrainer.create_train_state(
+      k, jmcfg, jtcfg, scene.num_images)[2])(jax.random.PRNGKey(0))
+  jstate = jstate.replace(conf_params={"lambdas": jnp.asarray(lambdas)})
+  jstep = jtrainer.make_train_step(
+      JaxModel(config=jmcfg), LearnPose(num_cams=scene.num_images), jtcfg,
+      jdev, scene.i_train, scene.near, scene.far, donate=False,
+      conf_maps=maps)
+  key = jax.random.PRNGKey(11)
+  jnext, jmetrics = jstep(jstate, key)
+
+  tcfg, mcfg = trainer.TrainConfig(**train), MipNerfConfig(**MODEL)
+  model, pose, state = trainer.create_train_state(1, mcfg, tcfg,
+                                                  scene.num_images,
+                                                  device="cpu")
+  train_state_from_flax(state, _np(jstate.params), _np(jstate.pose_params),
+                        _np(jstate.conf_params))
+  state.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+  tdev = sampler.scene_to_device(scene, "cpu")
+  step = trainer.make_train_step(model, pose, tcfg, tdev, scene.i_train,
+                                 scene.near, scene.far,
+                                 conf_maps=torch.from_numpy(maps))
+  draws = _jax_draws(key, tcfg, mcfg, jdev, scene.i_train, scene.near,
+                     scene.far)
+  assert bool(tdev["skymask"][draws.img_idx, draws.py, draws.px].any())
+  metrics = step(state, draws=draws)
+  _assert_metrics_close(metrics, jmetrics, 1e-5)
+  assert "loss_depth" in metrics
+
+  got = state.conf_model.lambdas.detach().numpy()
+  want = np.asarray(jnext.conf_params["lambdas"])
+  np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+  img = int(draws.img_idx[0])
+  moved = np.abs(got - lambdas).max(axis=0)
+  assert moved[img] > 0.5 * tcfg.conf_lrate
+  assert np.all(np.delete(moved, img) == 0)
+
+
 def test_depth_conf_raises():
-  from snerf_tpu.config import load_config
-  from snerf_tpu_torch import config as tconfig
-  cfg = load_config(["--config", "configs/nuScenes_depth_6cams"])
-  assert cfg.depth_conf
-  with pytest.raises(NotImplementedError):
-    tconfig.train_config(cfg)
-  with pytest.raises(NotImplementedError):
-    trainer.create_train_state(0, MipNerfConfig(**MODEL),
-                               trainer.TrainConfig(depth_conf=True), 6,
-                               device="cpu")
+  """Confidence inputs that do not fit the config raise: an unknown mode,
+  maps whose train-image or mode count is not the config's, and maps
+  that are not uint8."""
+  with pytest.raises(ValueError, match="unknown confidence modes"):
+    trainer.create_train_state(
+        0, MipNerfConfig(**MODEL),
+        trainer.TrainConfig(depth_conf=True, conf_modes=("rgb", "lidar")),
+        6, device="cpu")
+  scene = synthetic.make_synthetic_scene(num_images=6, H=8, W=8,
+                                         n_render_samples=8)
+  tcfg = trainer.TrainConfig(**dict(TRAIN, depth_conf=True,
+                                    conf_modes=CONF_MODES))
+  model, pose, _ = trainer.create_train_state(0, MipNerfConfig(**MODEL),
+                                              tcfg, 6, device="cpu")
+  n_train = len(scene.i_train)
+  for shape, dtype in (((n_train, 2, 8, 8), torch.uint8),
+                       ((n_train + 1, 3, 8, 8), torch.uint8),
+                       ((n_train, 3, 8, 8), torch.float32)):
+    with pytest.raises(ValueError, match="conf_maps"):
+      trainer.make_train_step(model, pose, tcfg,
+                              sampler.scene_to_device(scene, "cpu"),
+                              scene.i_train, scene.near, scene.far,
+                              conf_maps=torch.zeros(shape, dtype=dtype))
 
 
 def test_train_config_matches_jax_adapter():
+  """The shipped nuScenes_depth_6cams as both adapters read it, the
+  confidence's fields included (vgg mode with --vgg_loss)."""
   from snerf_tpu.config import load_config
   from snerf_tpu_torch import config as tconfig
-  cfg = load_config(["--config", "configs/nuScenes_depth_6cams",
-                     "--depth_conf", "False"])
-  got = dataclasses.asdict(tconfig.train_config(cfg))
-  want = dataclasses.asdict(cfg.train_config())
-  for k, v in got.items():
-    assert want[k] == v, k
-  assert {k for k in want if k not in got} == {
-      "conf_num", "conf_tau", "conf_lrate", "conf_modes",
-      "use_skymask_conf"}
+  for extra in ([], ["--flow", "True", "--vgg_loss", "False"]):
+    cfg = load_config(["--config", "configs/nuScenes_depth_6cams"] + extra)
+    got = dataclasses.asdict(tconfig.train_config(cfg))
+    want = dataclasses.asdict(cfg.train_config())
+    assert got == want
+  assert got["depth_conf"] and got["conf_modes"] == ("rgb", "ssim", "depth",
+                                                     "flow")
+  cfg = load_config(["--config", "configs/nuScenes_depth_6cams"])
+  assert tconfig.train_config(cfg).conf_modes == ("rgb", "ssim", "depth",
+                                                  "vgg")
   assert tconfig.model_config(cfg).density_noise == cfg.density_noise
