@@ -142,14 +142,38 @@ Phases, each fatal on failure:
        mip) for its 2,000 steps, seed 0, read at steps 500, 1,000 and
        2,000 beside the JAX package's seeds: held-out PSNR at 2,000 at
        least CELL_PSNR_FLOOR, K1's backward 9 launches a step; one cell
-       step under torch.profiler.
+       step under torch.profiler;
+ 10. configs/waymo_zipnerf_tpu, the cp_hash arm (the integrated CP grid,
+     one fine hash level on the nerf MLP, the cylinder cast, 8 x 512
+     trunks):
+     10a. K1 at its trunks' shapes: forward, dgrad and wgrad + reduce at
+       a proposal trunk's 2,097,152 rows and the nerf trunk's 1,048,576,
+       D = 512, runs of 4 and 3 layers, against fused_mlp_plain and
+       fused_mlp_bwd_plain at F32_TOL and BWD_TOL, and each backward
+       kernel alone against its plain version and one PyTorch call;
+     10b. the fused encode at the fine level (L 1, C 4, 2^19 rows at
+       2,048) on uniform positions and on the positions and output
+       gradient captured in one cp_hash step: forward bit-equal, table
+       gradient within SCATTER_TOL of an f64 control beside a fault
+       reading; one cp_hash step under torch.profiler (K1, the encode,
+       the CP encode's profiles and matmuls, the other GEMMs, idle);
+     10c. cli.train with the config (--zip_compute_dtype float32
+       --zip_lr_delay 0) on the Waymo-layout copy of the fixture, 2 + 10
+       steps at the shipped batch: s/step, peak memory, K1 12 forwards
+       (6 runs, each recomputed by the trunk checkpoint) and 21 of each
+       backward kernel a step, the encode 1 + 1, K2 never; a falling loss
+       and EMA weights apart from the raw ones; cli.eval of the 42 train
+       views (6 K1 forwards and 1 encode a chunk) and a 2-pose random
+       cli.render, both from the EMA weights.
 Each phase prints its seconds. The kernels line lists every kernel with
 its path's launch counts (the mip train step for fused_mlp, tf32_split
 and the three backward kernels, the zip train step for the fused encode,
 the survey for the probes and for K2's gather and scatter-add, which no
 path runs since the fused encode; then K1 at D = 512 with the counts of
 9d's mip cell and the fused encode at the zip_hash shapes with those of
-9a's step, each named with its shape), its time at the path's
+9a's step, then K1 at the cp_hash trunks and the encode at the cp_hash
+fine level with the counts of 10c's training run, each named with its
+shape), its time at the path's
 shapes beside its plain version's, its bound (the larger of its bytes
 over HBM_RATE and its operations over their peak rate) and the time of
 one PyTorch call computing the same function, where there is one.
@@ -435,12 +459,15 @@ def _rel_errs(got, want):
           for k, g, w in zip(("dx", "dW", "db"), got, want)}
 
 
-def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
+def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters,
+             round_trip=True):
   """K1's backward kernels against fused_mlp_bwd_plain on the same saved
   activations and output gradient: dx, dW, db within BWD_TOL of
   max|plain|, CUDA-event times in turns and TFLOP/s; the training
-  forward (layers kept) bit-equal to the eval call; then one autograd
-  round trip through fused_mlp against autograd through fused_mlp_plain.
+  forward (layers kept) bit-equal to the eval call; then, with
+  round_trip, one autograd round trip through fused_mlp against autograd
+  through fused_mlp_plain (left out where its plain autograd would not
+  fit in the card's memory).
   """
   gen = torch.Generator(device="cuda").manual_seed(n * 5 + d + n_layers)
   dev = "cuda"
@@ -479,6 +506,26 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
   # its forward is ~3e-5 off the kernel's, so a pre-activation that close
   # to 0 flips, and one flipped entry of the top layer moves a whole row
   # of dx by O(its size): that comparison is printed, not checked.
+  fmt = lambda es: ", ".join(f"{k} {e:.2e} (max|plain| {s:.2e})"
+                             for k, (e, s) in es.items())
+  log(f"  {name}: N={n} D={d} L={n_layers} last_relu={last_relu}: "
+      f"{fmt(errs)} (tol {BWD_TOL} x max|plain|); kernels {k_ms:.3f} ms "
+      f"({flop / k_ms / 1e9:.1f} TFLOP/s) plain {p_ms:.3f} ms "
+      f"({flop / p_ms / 1e9:.1f} TFLOP/s) [{k1:.3f}/{k2:.3f} vs "
+      f"{p1:.3f}/{p2:.3f}]; forward keeping layers bit-equal to eval: "
+      f"{bit_equal}; two backward runs bit-equal: {deterministic}")
+  check(finite, f"{name}: backward kernels gave non-finite grads")
+  check(bit_equal, f"{name}: the forward keeping its layers differs from "
+        "the eval forward")
+  check(deterministic, f"{name}: two identical backward runs differ")
+  check(ok, f"{name}: backward kernels disagree with plain: {errs}")
+  res = dict(err=max(e / max(s, 1e-30) for e, s in errs.values()),
+             abs_err=max(e for e, _ in errs.values()), ms=k_ms,
+             plain_ms=p_ms)
+  if not round_trip:
+    del x, w, b, g, saved, kept, out, split
+    torch.cuda.empty_cache()
+    return res
   masks = [a > 0 for a in saved]
   del saved, kept, out, split
   leaves = [t.clone().requires_grad_() for t in (x, w, b)]
@@ -506,30 +553,15 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters):
   flips = int((masks[-1] != (own_out > 0)).sum()) if last_relu else 0
   own_errs = _rel_errs(got, own)
   del want, own, own_out, masks
-  fmt = lambda es: ", ".join(f"{k} {e:.2e} (max|plain| {s:.2e})"
-                             for k, (e, s) in es.items())
-  log(f"  {name}: N={n} D={d} L={n_layers} last_relu={last_relu}: "
-      f"{fmt(errs)} (tol {BWD_TOL} x max|plain|); kernels {k_ms:.3f} ms "
-      f"({flop / k_ms / 1e9:.1f} TFLOP/s) plain {p_ms:.3f} ms "
-      f"({flop / p_ms / 1e9:.1f} TFLOP/s) [{k1:.3f}/{k2:.3f} vs "
-      f"{p1:.3f}/{p2:.3f}]; forward keeping layers bit-equal to eval: "
-      f"{bit_equal}; two backward runs bit-equal: {deterministic}")
   log(f"    autograd round trip vs plain autograd on the kernel's ReLU "
       f"decisions: {fmt(trip)} (tol {BWD_TOL} x max|plain|); vs autograd "
       f"through fused_mlp_plain (its own decisions, {flips} of the top "
       f"layer's differ): {fmt(own_errs)} (not checked)")
-  check(finite, f"{name}: backward kernels gave non-finite grads")
-  check(bit_equal, f"{name}: the forward keeping its layers differs from "
-        "the eval forward")
-  check(deterministic, f"{name}: two identical backward runs differ")
-  check(ok, f"{name}: backward kernels disagree with plain: {errs}")
   check(trip_ok, f"{name}: autograd through fused_mlp disagrees with "
         f"plain autograd on the same ReLU decisions: {trip}")
   del x, w, b, g, leaves, got
   torch.cuda.empty_cache()
-  return dict(err=max(e / max(s, 1e-30) for e, s in errs.values()),
-              abs_err=max(e for e, _ in errs.values()), ms=k_ms,
-              plain_ms=p_ms)
+  return res
 
 
 def bwd_kernel_times(torch, fm, n, d, iters):
@@ -1822,10 +1854,11 @@ def profile_zip_step(torch, step_fn, model):
   return out
 
 
-def zip_train_setup(torch, scene, log_config=False):
-  """The waymo_zipnerf training step at full width on the synthetic scene
-  with semantic labels from depth quantiles and an object mask on one
-  corner: (zcfg, tcfg, zscene, dev_scene, state, step)."""
+def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf"):
+  """The training step of `config` (waymo_zipnerf by default) at full
+  width on the synthetic scene with semantic labels from depth quantiles
+  and an object mask on one corner: (zcfg, tcfg, zscene, dev_scene,
+  state, step)."""
   import dataclasses
 
   import numpy as np
@@ -1837,8 +1870,7 @@ def zip_train_setup(torch, scene, log_config=False):
   # lr_delay 0: the shipped 5,000-step warm-up starts at lr 1e-10.
   # zip_compute_dtype float32: JAX trains bf16 zip MLPs here, the port
   # trains f32 until B.2 (zip_train_config raises on bf16 flags).
-  cfg = load_config(["--config",
-                     os.path.join(ROOT, "configs", "waymo_zipnerf"),
+  cfg = load_config(["--config", os.path.join(ROOT, "configs", config),
                      "--zip_lr_delay", "0", "--zip_compute_dtype", "float32"])
   zcfg, tcfg = zip_model_config(cfg), zip_train_config(cfg)
   # semantic labels from depth quantiles, an object mask on one corner
@@ -2577,6 +2609,288 @@ def quality_cell_phase(torch):
   return dict(r, counts=counts)
 
 
+# Phase 10: configs/waymo_zipnerf_tpu, the cp_hash arm (the integrated
+# CP grid, one fine hash level on the nerf MLP, the cylinder cast, 8 x 512
+# trunks with a skip after layer 4 and a 512-wide density_hidden) at the
+# shipped batch, 32,768 rays of (64, 64) + 32 intervals: 2,097,152 rows a
+# proposal trunk, 1,048,576 the nerf trunk.
+TPU_CONFIG = "waymo_zipnerf_tpu"
+TPU_PROP_ROWS, TPU_NERF_ROWS = 32768 * 64, 32768 * 32
+# K1 a step: two uniform runs a trunk (ipe_1..4; ipe_6, ipe_7 and
+# density_hidden) in each of the 3 MLPs, 6 forward launches, each run
+# again in the backward, where the trunk checkpoint recomputes it: 12
+# forward launches (and 12 weight splits) a step; dgrad, wgrad and reduce
+# once a layer of the runs, (4 + 3) x 3. The fused encode: the nerf MLP's
+# fine level, one forward and one backward a step.
+TPU_K1_RUNS = 6
+TPU_K1_BWD_PER_STEP = 21
+TPU_TRAIN_WARMUP, TPU_TRAIN_STEPS = 2, 10
+
+
+def tpu_shapes_phase(torch):
+  """10a: K1 at the cp_hash trunks' shapes (D = 512, 4 and 3 layers, a
+  proposal trunk's 2,097,152 rows and the nerf trunk's 1,048,576) against
+  fused_mlp_plain and fused_mlp_bwd_plain at F32_TOL and BWD_TOL (the
+  autograd round trip at the nerf rows only: at the proposal rows its
+  plain autograd would not fit), and each backward kernel alone at both
+  row counts against its plain version and one PyTorch call."""
+  from snerf_tpu_torch.ops import fused_mlp as fm
+
+  f32 = torch.float32
+  log("[kernel] K1 at the cp_hash trunks of configs/waymo_zipnerf_tpu (D "
+      f"512; {TPU_PROP_ROWS} rows a proposal trunk, {TPU_NERF_ROWS} the nerf "
+      "trunk, a step)")
+  runs = (("ipe_1..4", 4), ("ipe_6, ipe_7, density_hidden", 3))
+  fwd = {f"tpu {mlp} {run}": kernel_case(torch, fm.fused_mlp,
+                                         fm.fused_mlp_plain,
+                                         f"tpu {mlp} {run}", rows, 512,
+                                         layers, f32, True, 3)
+         for mlp, rows in (("proposal", TPU_PROP_ROWS),
+                           ("nerf", TPU_NERF_ROWS))
+         for run, layers in runs}
+  bwd = {f"tpu {mlp} {run}": bwd_case(torch, fm, f"tpu {mlp} {run}", rows,
+                                      512, layers, True, 2,
+                                      round_trip=mlp == "nerf")
+         for mlp, rows in (("proposal", TPU_PROP_ROWS),
+                           ("nerf", TPU_NERF_ROWS))
+         for run, layers in runs}
+  alone = {rows: bwd_kernel_times(torch, fm, rows, 512, 5)
+           for rows in (TPU_PROP_ROWS, TPU_NERF_ROWS)}
+  return dict(fwd=fwd, bwd=bwd, alone=alone)
+
+
+def profile_cp_step(torch, step_fn, model):
+  """Device time of one cp_hash train step under torch.profiler, by what
+  runs it: K1 (forward and its recompute, tf32_split, dgrad, wgrad +
+  reduce), the fused encode, the CP encode (its profiles and matmuls, in
+  the forward and in its backward's recompute), the other cuBLAS GEMMs
+  (the trunks' wider layers, the view branch), Adam and the rest; with
+  the idle share against the host clock."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile, record_function
+  from snerf_tpu_torch.models.cpgrid import CPEncoding
+
+  grids = [m for m in model.modules() if isinstance(m, CPEncoding)]
+  for m in grids:
+    def labelled(*args, fn=m.forward, **kwargs):
+      with record_function("cp_encode"):
+        return fn(*args, **kwargs)
+    m.forward = labelled
+  try:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      step_fn()
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+  finally:
+    for m in grids:
+      del m.forward
+
+  def kind(name):
+    for key, label in (("k1_wgmma_kernel<false>", "K1 forward"),
+                       ("tf32_split", "K1 tf32_split"),
+                       ("k1_wgmma_kernel<true>", "K1 dgrad"),
+                       ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
+                       ("fused_mlp_bwd_reduce", "K1 wgrad + reduce"),
+                       ("hash_encode_fwd_kernel", "fused encode forward"),
+                       ("hash_encode_bwd_kernel", "fused encode backward")):
+      if key in name:
+        return label
+    return None
+
+  def context(e, kernel):
+    gemm = "gemm" in kernel.lower() or "gemv" in kernel.lower()
+    while e is not None:
+      if e.name == "cp_encode" or "_LevelEncode" in e.name:
+        return "CP encode (profiles and matmuls)"
+      if e.name.startswith("Optimizer.step"):
+        return "Adam"
+      e = e.cpu_parent
+    return "other matmul (cuBLAS)" if gemm else "the rest"
+
+  events = prof.events()
+  out = {k: 0.0 for k in ("K1 forward", "K1 tf32_split", "K1 dgrad",
+                          "K1 wgrad + reduce", "fused encode forward",
+                          "fused encode backward",
+                          "CP encode (profiles and matmuls)",
+                          "other matmul (cuBLAS)", "Adam", "the rest")}
+  busy, by_name = 0.0, {}
+  for e in events:
+    if e.device_type != DeviceType.CUDA or getattr(
+        e, "is_user_annotation", False):
+      continue
+    ms = e.time_range.elapsed_us() / 1e3
+    busy += ms
+    by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    if kind(e.name):
+      out[kind(e.name)] += ms
+  for e in events:
+    if e.device_type == DeviceType.CPU and e.kernels:
+      for k in e.kernels:
+        if not kind(k.name):
+          out[context(e, k.name)] += k.duration / 1e3
+  if busy == 0:
+    log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms; "
+        "torch.profiler recorded no device time, breakdown not measured")
+    return None
+  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
+  log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms, device busy "
+      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
+  for k in list(out)[:10]:
+    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
+  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    log(f"    kernel {name[:90]}: {ms:.2f} ms")
+  return out
+
+
+def tpu_encode_phase(torch, scene):
+  """10b: one cp_hash train step of configs/waymo_zipnerf_tpu at full
+  width on the synthetic scene, its fine level recording its positions
+  and output gradient; the fused encode at that level's shape (L 1, C 4,
+  2^19 rows at resolution 2,048) on uniform positions and on the
+  captured ones: forward bit-equal to the plain version, the table
+  gradient within SCATTER_TOL of an f64 control beside the fault of an
+  update missing (encode_case). Then one step under torch.profiler."""
+  *_, state, step = zip_train_setup(torch, scene, config=TPU_CONFIG)
+  encoders = record_encoders(torch, state, step)
+  check(set(encoders) == {"nerf_mlp"}, "the cp_hash step's hash encoders: "
+        f"{sorted(encoders)}, expected nerf_mlp's fine level alone")
+  xf, g, spec = encoders.pop("nerf_mlp")
+  log(f"[kernel] the fused encode at the cp_hash fine level: L "
+      f"{spec.num_levels}, C {spec.level_dim}, {spec.sizes[0]} rows, grid "
+      f"{spec.resolutions[0]}, {xf.shape[0]} positions a step")
+  check(spec.num_levels == 1 and spec.level_dim == 4
+        and spec.sizes == (2 ** 19,) and spec.resolutions == (2048,)
+        and xf.shape[0] == TPU_NERF_ROWS,
+        f"the fine level's shape: {spec}, {tuple(xf.shape)}")
+  gen = torch.Generator(device="cuda").manual_seed(1)
+  step(state, gen)
+  prof = profile_cp_step(torch, lambda: step(state, gen), state.model)
+  del state, step
+  torch.cuda.empty_cache()
+  enc = {name: encode_case(torch, name, spec, TPU_NERF_ROWS, 5, **kw)
+         for name, kw in (
+             ("cp_hash fine level, uniform positions",
+              dict(need_dx=True)),
+             ("cp_hash fine level, the step's positions and gradient",
+              dict(x=xf, g=g)))}
+  for name, r in enc.items():
+    check(r["equal"], f"{name}: the fused forward is not bit-equal to the "
+          "plain version")
+  del xf, g
+  torch.cuda.empty_cache()
+  return dict(enc=enc, prof=prof)
+
+
+def tpu_cli_phase(torch, base, card):
+  """10c: cli.train with configs/waymo_zipnerf_tpu as shipped but for
+  --zip_compute_dtype float32 and --zip_lr_delay 0, on a Waymo-layout
+  copy of the realfocal fixture, TPU_TRAIN_WARMUP + TPU_TRAIN_STEPS steps
+  at the shipped batch: the step time (the train log's rays/s after the
+  warm-up), the peak device memory, the launches a step (K1 12 forward,
+  21 of each backward kernel; the fused encode 1 + 1; K2 never); a
+  falling loss and EMA weights apart from the raw ones. Then cli.eval on
+  the train views (6 K1 forwards and 1 encode a render chunk) and a 2-pose
+  cli.render --render_mode random, both from the EMA weights."""
+  import numpy as np
+  from snerf_tpu_torch.cli import eval as cli_eval
+  from snerf_tpu_torch.cli import render as cli_render
+  from snerf_tpu_torch.cli import train as cli_train
+
+  steps = TPU_TRAIN_WARMUP + TPU_TRAIN_STEPS
+  data = waymo_layout(base)
+  common = ["--config", os.path.join(ROOT, "configs", TPU_CONFIG),
+            "--datadir", data, "--basedir", base, "--device", "cuda"]
+  log(f"[entry points] cli.train {TPU_CONFIG} (cp_hash, dataset_type waymo, "
+      f"19 classes) on a Waymo-layout copy of the fixture, "
+      f"--zip_compute_dtype float32 --zip_lr_delay 0, {steps} steps")
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  state, c_train = counted(lambda: cli_train.main(common + [
+      "--zip_compute_dtype", "float32", "--zip_max_steps", str(steps),
+      "--zip_lr_delay", "0", "--i_print", "1"]))
+  peak = torch.cuda.max_memory_allocated()
+  check(state.step == steps, f"cli.train ended at {state.step}")
+  cfg = state.model.config
+  log(f"  model: {cfg.encoder_type}, CP {cfg.cp_num_levels} levels x "
+      f"{cfg.cp_level_dim} ({cfg.cp_base_resolution}-"
+      f"{cfg.cp_max_resolution}), fine level 2^{cfg.cp_hash_log2} at "
+      f"{cfg.cp_hash_resolution}, cylinder cast {cfg.aniso_cast}, trunk "
+      f"{cfg.ipe_density_depth} x {cfg.ipe_density_width} (skip "
+      f"{cfg.ipe_skip_layer}), density_hidden {cfg.density_hidden_width}, "
+      f"IPE degree {cfg.ipe_max_deg}, feature_center "
+      f"{cfg.cp_feature_center}, density_zero_init {cfg.density_zero_init}")
+  params = dict(state.model.named_parameters())
+  with torch.no_grad():
+    ema_apart = max(float((params[k] - v).abs().max())
+                    for k, v in state.ema.items())
+  del state, params
+  torch.cuda.empty_cache()
+  log_lines = [e for e in _train_log(os.path.join(base, "waymo_zip_tpu"))
+               if "loss" in e]
+  losses = [e["loss"] for e in log_lines]
+  timed = [e["rays_per_sec"] for e in log_lines
+           if e["step"] > TPU_TRAIN_WARMUP]
+  step_s = sum(32768 / r for r in timed) / len(timed)
+  per_step = {k: v / steps for k, v in c_train.items()}
+  k = TPU_TRAIN_STEPS // 3
+  first, last = sum(losses[:k]) / k, sum(losses[-k:]) / k
+  log(f"  {TPU_TRAIN_STEPS} steps after {TPU_TRAIN_WARMUP} warm-up: "
+      f"{step_s:.4f} s/step = {32768 / step_s:.1f} rays/s (the train log); "
+      f"peak device memory {peak / 2**30:.3f} GiB "
+      f"(torch.cuda.max_memory_allocated, the whole run) | {card}")
+  log(f"  loss by step {' '.join(f'{v:.4f}' for v in losses)}: first {k} "
+      f"mean {first:.5f}, last {k} mean {last:.5f}; EMA apart from the "
+      f"weights by up to {ema_apart:.3e}; launches a step {per_step}")
+  check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+        f"cp_hash losses {losses}")
+  check(last < first, f"the cp_hash loss did not fall: {losses}")
+  check(ema_apart > 0, "the EMA weights equal the raw ones")
+  expected = {"fused_mlp": 2 * TPU_K1_RUNS, "tf32_split": 2 * TPU_K1_RUNS,
+              "fused_mlp_bwd_dgrad": TPU_K1_BWD_PER_STEP,
+              "fused_mlp_bwd_wgrad": TPU_K1_BWD_PER_STEP,
+              "fused_mlp_bwd_reduce": TPU_K1_BWD_PER_STEP,
+              "hash_encode_fwd": 1, "hash_encode_bwd": 1, "hash_gather": 0,
+              "hash_scatter_add": 0}
+  check(per_step == expected, f"cp_hash launches a step {per_step}, "
+        f"expected {expected}")
+
+  summary, c_eval = counted(lambda: cli_eval.main(common + ["--eval_test",
+                                                            "False"]))
+  chunks = len(summary["per_image"]) * -(-96 * 128 // 8192)
+  log(f"  cli.eval --eval_test False (EMA weights): step {summary['step']}, "
+      f"mean PSNR {summary['mean_psnr']:.3f}, SSIM "
+      f"{summary['mean_ssim']:.4f} over {len(summary['per_image'])} views "
+      f"({chunks} chunks), eval rays/s {summary['eval_rays_per_sec']} (warm "
+      f"{summary.get('eval_rays_per_sec_warm')}), mIoU "
+      f"{summary.get('miou')}; launches {c_eval}")
+  check(len(summary["per_image"]) == 42 and "miou" in summary,
+        f"eval's views / mIoU: {len(summary['per_image'])}")
+  check(all(math.isfinite(r[k]) for r in summary["per_image"]
+            for k in ("psnr", "ssim")), "non-finite cp_hash eval metrics")
+  check(c_eval["fused_mlp"] == TPU_K1_RUNS * chunks
+        and c_eval["hash_encode_fwd"] == chunks
+        and c_eval["hash_gather"] == 0,
+        f"cli.eval's cp_hash launches {c_eval}, expected {TPU_K1_RUNS} K1 "
+        f"and 1 encode a chunk over {chunks} chunks")
+  out, c_render = counted(lambda: cli_render.main(
+      common + ["--render_mode", "random", "--render_n", "2"]))
+  _expect_files([os.path.join(out, f) for f in (
+      "rgb/00000.png", "rgb/00001.png", "depth/00000.png", "depth/00001.png",
+      "semantic/00000.npy", "semantic/00001.npy", "render_poses.npy")])
+  poses = np.load(os.path.join(out, "render_poses.npy"))
+  log(f"  cli.render --render_mode random --render_n 2 (EMA weights): "
+      f"{os.path.relpath(out, ROOT)}, poses {poses.shape}; launches "
+      f"{c_render}")
+  check(c_render["fused_mlp"] > 0 and c_render["hash_encode_fwd"] > 0,
+        f"cli.render's cp_hash launches {c_render}")
+  return dict(train=c_train, eval=c_eval, render=c_render, step_s=step_s,
+              peak=peak, losses=losses, summary=summary)
+
+
 def main() -> int:
   import torch
 
@@ -2903,6 +3217,15 @@ def main() -> int:
   phase_done("9c zip CLI")
   cell = quality_cell_phase(torch)
   phase_done("9d mip quality cell")
+
+  # 10. configs/waymo_zipnerf_tpu: K1 at its trunks' shapes, the fused
+  # encode at its fine level, the entry points
+  tpu_k1 = tpu_shapes_phase(torch)
+  phase_done("10a cp_hash K1 shapes")
+  tpu_enc = tpu_encode_phase(torch, scene)
+  phase_done("10b cp_hash fine level")
+  tpu = tpu_cli_phase(torch, base, card)
+  phase_done("10c cp_hash CLI")
   log(f"[phases] {' '.join(f'{k}: {v:.1f} s' for k, v in phase_secs.items())}"
       f"; total {sum(phase_secs.values()):.1f} s")
 
@@ -3040,6 +3363,50 @@ def main() -> int:
                               library=False),
                         name=f"{name} (zip_hash, 2^19 rows)",
                         path="one zip_hash cell step (phase 9a)",
+                        jax_source="snerf_tpu/models/hashgrid.py:116"))
+  # phase 10's shapes: K1 at the cp_hash trunks and the fused encode at
+  # the fine level, with the launches of 10c's training run
+  d, n = 512, TPU_PROP_ROWS
+  splits = fm.wgrad_splits(
+      n, d, torch.cuda.get_device_properties(0).multi_processor_count)[1]
+  kb = {k: dict(v) for k, v in tpu_k1["alone"][n].items()}
+  for name, nbytes, flops, rate in (
+      ("fused_mlp_bwd_dgrad", (3 * n * d + d * d) * 4, 2.0 * n * d * d,
+       F32_MMA_RATE),
+      ("fused_mlp_bwd_wgrad", (2 * n * d + d * d + d) * 4, 2.0 * n * d * d,
+       F32_MMA_RATE),
+      ("fused_mlp_bwd_reduce", (splits + 1) * (d * d + d) * 4,
+       splits * (d * d + d), F32_RATE)):
+    kb[name]["bound_ms"], kb[name]["bound_by"] = bound_ms(nbytes, flops,
+                                                          rate)
+  tpu_path = "configs/waymo_zipnerf_tpu training, 12 steps (phase 10c)"
+  kernels.append(dict(entry(
+      "fused_mlp", "fused_mlp.cu", "snerf_tpu/ops/pallas/fused_mlp.py:66",
+      tpu["train"]["fused_mlp"],
+      max(r["err"] for r in tpu_k1["fwd"].values()),
+      tpu_k1["fwd"]["tpu proposal ipe_1..4"], library=False),
+      name="fused_mlp (cp_hash proposal trunk, 2,097,152 x 512 x 4)",
+      path=tpu_path))
+  kernels += [dict(entry(name, "fused_mlp.cu",
+                         "snerf_tpu/ops/pallas/fused_mlp.py:104",
+                         tpu["train"][name], kb[name]["err"], kb[name]),
+                   name=f"{name} (cp_hash proposal layer, 2,097,152 x 512)",
+                   path=tpu_path)
+              for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
+                           "fused_mlp_bwd_reduce")]
+  fine = tpu_enc["enc"]["cp_hash fine level, the step's positions and "
+                        "gradient"]
+  for name, replaces, err, r in (
+      ("hash_encode_fwd", "snerf_tpu/ops/pallas/hash_gather_dense.py:63",
+       max(v["abs_err"] for v in tpu_enc["enc"].values()), fine),
+      ("hash_encode_bwd", "snerf_tpu/ops/pallas/hash_gather_dense.py:91",
+       max(v["tab_abs_err"] for v in tpu_enc["enc"].values()),
+       dict(ms=fine["bwd_ms"], plain_ms=fine["bwd_plain_ms"],
+            bound_ms=fine["bwd_bound_ms"], bound_by=fine["bwd_bound_by"]))):
+    kernels.append(dict(entry(name, "hash_encode.cu", replaces,
+                              tpu["train"][name], err, r, library=False),
+                        name=f"{name} (cp_hash fine level, L 1, 2^19 rows)",
+                        path=tpu_path,
                         jax_source="snerf_tpu/models/hashgrid.py:116"))
   log(json.dumps({"kernels": kernels}))
   log(card)

@@ -1,6 +1,6 @@
 """Held-out quality cells of the port (counterpart of bench_quality.py):
 
-  python -m snerf_tpu_torch.bench_quality [--families mip zip_hash]
+  python -m snerf_tpu_torch.bench_quality [--families mip zip_hash ...]
       [--steps 2000] [--batch 2048] [--seeds 0 1 2] [--out FILE]
 
 Trains each family for a fixed step budget on the committed
@@ -11,12 +11,26 @@ steps, batch, seed, wall_s, rays_per_sec, psnr on the first two held-out
 views, train_psnr, curve) and `device`, the card's name and power limit
 as nvidia-smi gives them. Runs on a CUDA card only.
 
-Families (bench_quality.py's, at its widths):
+Families (bench_quality.py's, at its widths and kwargs):
   mip       64 + 64 samples, width 512 (proposal 256), max_deg 16, depth
             loss on, lr 2e-3 -> 2e-4 without warm-up;
-  zip_hash  the hash arm: 10 levels of 2^19 rows, (32, 32) + 16 samples,
-            sample_n 4, power transformation, lr 8e-3 -> 8e-4, float32
-            MLPs (JAX's zip_compute_dtype float32).
+  zip_*     (32, 32) + 16 samples, sample_n 4, power transformation,
+            float32 MLPs (JAX's zip_compute_dtype float32), no EMA:
+    zip_hash             10 hash levels of 2^19 rows, lr 8e-3 -> 8e-4;
+    the rest at lr 2e-3 -> 2e-4 with the encoder tables at 4x:
+    zip_ipe              the IPE to degree 12 into a 4 x 256 trunk;
+    zip_aniso            the IPE of one cylinder cast an interval through
+                         the contraction (ipe_anisotropic), to degree 16,
+                         into an 8 x 512 trunk with a skip after layer 4
+                         and a 512-wide density layer, scene_scale 0.2725;
+    zip_cp, zip_cp_hash  the CP grid (4 levels of 16 features, 128 to
+                         1,024) with the IPE (cp_ipe), and with one fine
+                         hash level of 2^19 rows at 2,048, collapsed, no
+                         spread (cp_hash);
+    zip_cp_aniso         cp_hash with zip_aniso's cast and trunk and
+                         density_zero_init;
+    zip_cp_aniso_center  that with the CP features centered (the shipped
+                         configs/waymo_zipnerf_tpu arm at F 16).
 Seeds: the init from `seed`, the training draws from `seed + 1`, as the
 JAX script splits PRNGKey(seed) and PRNGKey(seed + 1) (so adjacent seeds
 share streams there too: ROADMAP Queue 3, item 8). As there, one step
@@ -37,7 +51,24 @@ import torch
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "fixtures", "nuscenes_realfocal")
-FAMILIES = ("mip", "zip_hash")
+# the aniso arms' cast and trunk (bench_quality.py's overrides)
+_ANISO_TRUNK = dict(ipe_skip_layer=4, density_hidden_width=512,
+                    ipe_density_width=512, ipe_density_depth=8, ipe_max_deg=16,
+                    scene_scale=0.2725)
+ZIP_FAMILIES = {
+    "zip_hash": dict(encoder_type="hash"),
+    "zip_ipe": dict(encoder_type="ipe"),
+    "zip_aniso": dict(encoder_type="ipe", ipe_anisotropic=True,
+                      **_ANISO_TRUNK),
+    "zip_cp": dict(encoder_type="cp_ipe"),
+    "zip_cp_hash": dict(encoder_type="cp_hash"),
+    "zip_cp_aniso": dict(encoder_type="cp_hash", cp_anisotropic=True,
+                         density_zero_init=True, **_ANISO_TRUNK),
+    "zip_cp_aniso_center": dict(encoder_type="cp_hash", cp_anisotropic=True,
+                                density_zero_init=True, cp_feature_center=True,
+                                **_ANISO_TRUNK),
+}
+FAMILIES = ("mip",) + tuple(ZIP_FAMILIES)
 EVAL_VIEWS = 2
 CHUNK = 4096
 MILESTONES = (0.25, 0.5, 1.0)
@@ -90,21 +121,34 @@ def mip_setup(scene, steps, batch, device, seed=0, overrides=None):
   return model, state, step
 
 
-def zip_setup(scene, steps, batch, device, seed=0, overrides=None):
-  """(model, state, step) of the zip_hash family."""
+def zip_setup(scene, steps, batch, device, seed=0, overrides=None,
+              family="zip_hash"):
+  """(model, state, step) of a zip family, with bench_quality.py's
+  encoder kwargs and learning rates."""
   from snerf_tpu_torch.data.sampler import scene_to_device
   from snerf_tpu_torch.models.zipnerf import ZipNerfConfig
   from snerf_tpu_torch.train.zip_trainer import (ZipTrainConfig,
                                                  create_zip_train_state,
                                                  make_zip_train_step)
+  fam = ZIP_FAMILIES[family]
+  encoder = fam["encoder_type"]
   kw = dict(num_prop_samples=(32, 32), num_nerf_samples=16, sample_n=4,
-            raydist_fn="power_transformation", encoder_type="hash",
-            grid_num_levels=10, grid_log2_hashmap_size=19)
+            raydist_fn="power_transformation")
+  lr, mult = 2e-3, 4.0
+  if encoder == "hash":
+    kw.update(grid_num_levels=10, grid_log2_hashmap_size=19)
+    lr, mult = 8e-3, 1.0
+  elif encoder.startswith("cp"):
+    kw.update(cp_num_levels=4, cp_level_dim=16, cp_base_resolution=128,
+              cp_max_resolution=1024, ipe_max_deg=12)
+    if encoder == "cp_hash":
+      kw.update(cp_hash_resolution=2048, cp_hash_log2=19,
+                cp_hash_use_spread=False)
+  kw.update(fam)
   kw.update(overrides or {})
-  lr = 8e-3
   tcfg = ZipTrainConfig(batch_size=batch, max_steps=steps, lr_init=lr,
                         lr_final=lr / 10, lr_delay_steps=0, lr_delay_mult=1.0,
-                        encoder_lr_mult=1.0, ema_decay=0.0,
+                        encoder_lr_mult=mult, ema_decay=0.0,
                         depth_loss_mult=0.0)
   state = create_zip_train_state(seed, ZipNerfConfig(**kw), tcfg,
                                  device=device)
@@ -120,8 +164,12 @@ def run_family(family, scene, steps, batch, device, seed=0, overrides=None):
   dict(wall_s, rays_per_sec, psnr, train_psnr, curve)."""
   from snerf_tpu_torch.train.renderer import (make_eval_render_fn,
                                               make_zip_eval_render_fn)
-  setup = mip_setup if family == "mip" else zip_setup
-  model, state, step = setup(scene, steps, batch, device, seed, overrides)
+  if family == "mip":
+    model, state, step = mip_setup(scene, steps, batch, device, seed,
+                                   overrides)
+  else:
+    model, state, step = zip_setup(scene, steps, batch, device, seed,
+                                   overrides, family)
   render_fn = (make_eval_render_fn(model) if family == "mip"
                else make_zip_eval_render_fn(model))
   gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -163,7 +211,7 @@ def card_info():
 
 def main(argv=None):
   ap = argparse.ArgumentParser()
-  ap.add_argument("--families", nargs="+", default=list(FAMILIES),
+  ap.add_argument("--families", nargs="+", default=["mip", "zip_hash"],
                   choices=FAMILIES)
   ap.add_argument("--steps", type=int, default=2000)
   ap.add_argument("--batch", type=int, default=2048)

@@ -77,16 +77,23 @@ def train_config(cfg: Config) -> TrainConfig:
 
 def zip_model_config(cfg: Config) -> ZipNerfConfig:
   """ZipNerfConfig for the eval path, as `Config.zip_model_config()`
-  builds it, with float32 activations whatever `zip_compute_dtype` says:
-  render.py and eval.py force float32 there too. Training reads the flag
-  in `zip_train_config`. An encoder other than hash or a GLO embedding
-  raises."""
+  builds it (every zip_ipe_* and zip_cp_* flag), with float32 activations
+  whatever `zip_compute_dtype` says: render.py and eval.py force float32
+  there too. Training reads the flag in `zip_train_config`. The cp_tri
+  and mipcast encoders and a GLO embedding raise."""
   return ZipNerfConfig(
       num_prop_samples=tuple(cfg.zip_num_prop_samples),
       num_nerf_samples=cfg.zip_num_nerf_samples,
       num_levels=len(tuple(cfg.zip_num_prop_samples)) + 1,
       num_glo_features=cfg.zip_glo_features,
       encoder_type=cfg.zip_encoder,
+      ipe_density_width=cfg.zip_ipe_density_width,
+      ipe_density_depth=cfg.zip_ipe_density_depth,
+      ipe_max_deg=cfg.zip_ipe_max_deg,
+      ipe_anneal_frac=cfg.zip_ipe_anneal_frac,
+      ipe_anisotropic=cfg.zip_ipe_anisotropic,
+      cp_anisotropic=cfg.zip_cp_anisotropic,
+      ipe_skip_layer=cfg.zip_ipe_skip_layer,
       density_hidden_width=cfg.zip_density_hidden_width,
       # None = the encoder-aware auto rule of Config.zip_model_config
       density_zero_init=(cfg.zip_encoder.startswith("cp")
@@ -94,6 +101,27 @@ def zip_model_config(cfg: Config) -> ZipNerfConfig:
                          else bool(cfg.zip_density_zero_init)),
       scene_scale=cfg.zip_scene_scale,
       density_bias=cfg.zip_density_bias,
+      cp_num_levels=cfg.zip_cp_num_levels,
+      cp_level_dim=cfg.zip_cp_level_dim,
+      cp_base_resolution=cfg.zip_cp_base_resolution,
+      cp_max_resolution=cfg.zip_cp_max_resolution,
+      cp_anneal_frac=cfg.zip_cp_anneal_frac,
+      cp_collapse_multisamples=cfg.zip_cp_collapse,
+      cp_pair_dim=cfg.zip_cp_pair_dim,
+      cp_init_smooth=cfg.zip_cp_init_smooth,
+      cp_factor_bound=cfg.zip_cp_factor_bound,
+      cp_feature_center=cfg.zip_cp_feature_center,
+      cp_feature_scale=cfg.zip_cp_feature_scale,
+      cp_hash_resolution=cfg.zip_cp_hash_resolution,
+      cp_hash_log2=cfg.zip_cp_hash_log2,
+      cp_hash_num_levels=cfg.zip_cp_hash_num_levels,
+      cp_hash_base_resolution=cfg.zip_cp_hash_base_resolution,
+      cp_hash_per_sample=cfg.zip_cp_hash_per_sample,
+      cp_hash_use_spread=cfg.zip_cp_hash_use_spread,
+      cp_hash_dither=cfg.zip_cp_hash_dither,
+      cp_hash_split=cfg.zip_cp_hash_split,
+      cp_tri_resolution=cfg.zip_cp_tri_resolution,
+      cp_tri_level_dim=cfg.zip_cp_tri_level_dim,
       sample_n=cfg.zip_sample_n,
       grid_num_levels=cfg.zip_grid_num_levels,
       grid_log2_hashmap_size=cfg.zip_log2_hashmap_size,

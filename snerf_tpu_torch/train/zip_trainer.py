@@ -8,7 +8,7 @@ distortion, hash decay, inverse depth with depth completion on masked
 pixels, semantic NLL, the two edge-aware patch smoothness terms),
 backpropagate (through the fused hash encode's backward on the card),
 scrub and clip the grads, and apply Adam to the model (log-lerp
-schedule, the encoder tables in their own param group) and SGD to the
+schedule, the encoder tables in their own param groups) and SGD to the
 poses inside their window, then the optional EMA. The JAX step is one jitted
 function of a PRNG key; here the step runs eagerly and its random draws
 come from a torch.Generator or are injected (`ZipStepDraws`).
@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -89,8 +90,9 @@ class ZipTrainConfig:
   pose_lr: float = 1e-4
   # the encoder tables train at encoder_lr_mult x the schedule
   encoder_lr_mult: float = 1.0
-  # per-level lr decay of per-level encoder params; the hash arm keeps all
-  # its levels in one table, which stays in the encoder group (as in JAX)
+  # > 0: CP level l's tables train at encoder_lr_mult x gamma^l, each
+  # level its own Adam group; the hash arm keeps all its levels in one
+  # table, which stays in the encoder group (as in JAX)
   encoder_level_lr_gamma: float = 0.0
   # norm clip of the encoder grads alone, before the global clip; 0 = off
   encoder_grad_max_norm: float = 0.0
@@ -102,7 +104,8 @@ class ZipTrainConfig:
 
 @dataclasses.dataclass
 class ZipTrainState:
-  """Step count, the model and its Adam (param groups "grid" and "net"),
+  """Step count, the model and its Adam (param groups "grid", "net" and
+  the CP level groups, `make_zip_optimizer`),
   the pose model and its SGD when poses are refined, and the EMA copy of
   the model's parameters (by `named_parameters` name)."""
   step: int
@@ -157,7 +160,25 @@ def make_zip_lr_schedule(cfg: ZipTrainConfig):
 
 
 def _is_encoder(name: str) -> bool:
-  return name.endswith("encoder.embeddings")
+  """Whether a parameter trains in the encoder group, as the JAX labels
+  go: the hash arm's tables (JAX subtree `grid`) and the CP tables
+  (`cp_grid`). cp_hash's fine level `hash_fine` trains with the rest."""
+  return name.endswith("encoder.embeddings") or ".cp_grid." in name
+
+
+_CP_LEVEL = re.compile(r"\.cp_grid\.[vp](\d+)$")
+_MAX_LEVEL_GROUP = 7   # JAX labels levels past 7 as level 7
+
+
+def _group_of(name: str, cfg: ZipTrainConfig) -> str:
+  """The Adam group of a parameter: "net", "grid", or with
+  encoder_level_lr_gamma > 0 "grid{l}" for a CP level table."""
+  if not _is_encoder(name):
+    return "net"
+  level = _CP_LEVEL.search(name)
+  if cfg.encoder_level_lr_gamma > 0 and level is not None:
+    return f"grid{min(int(level.group(1)), _MAX_LEVEL_GROUP)}"
+  return "grid"
 
 
 def _check_supported(cfg: ZipTrainConfig):
@@ -180,14 +201,24 @@ def make_zip_optimizer(model: ZipNerfModel,
                        cfg: ZipTrainConfig) -> torch.optim.Adam:
   """Adam over the model with optax's arithmetic: the encoder tables in
   the group "grid" at encoder_lr_mult x the schedule, the rest in "net";
-  the step sets each group's lr from its "lr_mult"."""
+  with encoder_level_lr_gamma > 0 each CP level l's tables in their own
+  group "grid{l}" at encoder_lr_mult x gamma^l (JAX's `_make_tx`). The
+  step sets each group's lr from its "lr_mult"."""
   groups: Dict[str, List[torch.nn.Parameter]] = {"grid": [], "net": []}
   for name, p in model.named_parameters():
-    groups["grid" if _is_encoder(name) else "net"].append(p)
+    groups.setdefault(_group_of(name, cfg), []).append(p)
+  gamma = cfg.encoder_level_lr_gamma
+
+  def mult(group):
+    if group == "net":
+      return 1.0
+    if group == "grid":
+      return cfg.encoder_lr_mult
+    return cfg.encoder_lr_mult * gamma ** int(group[4:])
+
   return torch.optim.Adam(
-      [{"params": groups["grid"], "name": "grid",
-        "lr_mult": cfg.encoder_lr_mult},
-       {"params": groups["net"], "name": "net", "lr_mult": 1.0}],
+      [{"params": params, "name": group, "lr_mult": mult(group)}
+       for group, params in groups.items()],
       lr=make_zip_lr_schedule(cfg)(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
       eps=cfg.adam_eps)
 
@@ -245,7 +276,10 @@ def make_zip_train_step(model: ZipNerfModel, cfg: ZipTrainConfig,
   cam_ids = torch.arange(init_poses.shape[0], device=init_poses.device)
   n_pix, n_patches = _patch_split(cfg)
   ps = cfg.patch_size
-  specs = [(m.encoder.embeddings, m.encoder.spec) for m in model.mlps()]
+  # the hash-decay loss reads the hash arm's tables alone (JAX's
+  # `_grid_specs`): not cp_hash's fine level
+  specs = ([(m.encoder.embeddings, m.encoder.spec) for m in model.mlps()]
+           if mcfg.encoder_type == "hash" else [])
   lr_at = make_zip_lr_schedule(cfg)
   pix_part = torch.arange(cfg.batch_size, device=init_poses.device) < n_pix
 
@@ -293,7 +327,7 @@ def make_zip_train_step(model: ZipNerfModel, cfg: ZipTrainConfig,
       total = total + dist
       metrics["loss_distortion"] = dist
 
-    if cfg.hash_decay_mult > 0:
+    if cfg.hash_decay_mult > 0 and specs:
       hd = sum(hash_decay_loss(table, spec, weight=1.0)
                for table, spec in specs) * cfg.hash_decay_mult
       total = total + hd

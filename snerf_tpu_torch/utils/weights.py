@@ -15,12 +15,14 @@ machines without JAX.
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
+from snerf_tpu_torch.models.cpgrid import CPEncoding
 from snerf_tpu_torch.models.hashgrid import HashEncoding
 
 
@@ -119,29 +121,44 @@ def glorot_init_(module: nn.Module, seed: int) -> nn.Module:
   return module
 
 
-# flax ZipMLP submodule -> the port's (reference torch) module name
-_ZIP_DENSE = {"density_hidden": "density_layer.0",
-              "density_out": "density_layer.2", "rgb_out": "rgb_layer"}
+# flax ZipMLP submodule -> the port's module name: the hash arm's
+# reference torch names, the other arms' own
+_ZIP_DENSE_HASH = {"density_hidden": "density_layer.0",
+                   "density_out": "density_layer.2", "rgb_out": "rgb_layer"}
+_ZIP_DENSE = {"density_hidden": "density_hidden.layers.0",
+              "density_out": "density_out", "rgb_out": "rgb_layer"}
+_CP_LEAF = re.compile(r"^[vp]\d+$")
 
 
 def zip_state_dict_from_flax(params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
-  """Flax ZipNerfModel params {prop_mlp_i, nerf_mlp: {grid, density_hidden,
-  density_out, view_i, rgb_out}} -> the port's ZipNerfModel state_dict
-  (CPU float32 tensors). Submodules of unported arms raise."""
+  """Flax ZipNerfModel params {prop_mlp_i, nerf_mlp: {grid | cp_grid,
+  hash_fine, ipe_i, density_hidden, density_out, view_i, rgb_out}} -> the
+  port's ZipNerfModel state_dict (CPU float32 tensors). A leaf of an
+  unported part (tri_fine, glo, normals, roughness) raises."""
   sd: Dict[str, torch.Tensor] = {}
+  arr = lambda a: torch.from_numpy(np.array(a, np.float32))
   for mlp_name, mlp in params.items():
+    dense = _ZIP_DENSE_HASH if "grid" in mlp else _ZIP_DENSE
     for name, leaf in mlp.items():
       if name == "grid":
-        sd[f"{mlp_name}.encoder.embeddings"] = torch.from_numpy(
-            np.array(leaf["table"], np.float32))
-      elif name in _ZIP_DENSE:
-        _dense(sd, f"{mlp_name}.{_ZIP_DENSE[name]}", leaf)
-      elif name.startswith("view_"):
+        sd[f"{mlp_name}.encoder.embeddings"] = arr(leaf["table"])
+      elif name == "hash_fine":
+        sd[f"{mlp_name}.hash_fine.embeddings"] = arr(leaf["table"])
+      elif name == "cp_grid":
+        for table, value in leaf.items():
+          if not _CP_LEAF.match(table):
+            raise ValueError(f"{mlp_name}.cp_grid.{table}: not a CP table")
+          sd[f"{mlp_name}.cp_grid.{table}"] = arr(value)
+      elif name in dense:
+        _dense(sd, f"{mlp_name}.{dense[name]}", leaf)
+      elif re.fullmatch(r"ipe_\d+", name):
+        _dense(sd, f"{mlp_name}.ipe_layers.{name[4:]}.layers.0", leaf)
+      elif re.fullmatch(r"view_\d+", name):
         _dense(sd, f"{mlp_name}.lin_second_stage_{name[5:]}", leaf)
       else:
-        raise ValueError(f"{mlp_name}.{name}: not a parameter of the ported "
-                         "hash arm")
+        raise ValueError(f"{mlp_name}.{name}: not a parameter of a ported "
+                         "zip arm")
   return sd
 
 
@@ -161,20 +178,24 @@ def zip_init_(model: nn.Module, seed: int,
               table_scale: float = 1e-4) -> nn.Module:
   """Seeded init of a ZipNerfModel in place, the JAX model's scheme:
   lecun_normal kernels and zero biases for every Linear, the density
-  column of each `density_layer.2` zeroed when the config asks for
-  density_zero_init, and hash tables uniform in +-table_scale (the JAX
-  HashEncoding init_std, 1e-4, by default). The draws come from a CPU
-  torch.Generator, so a seed gives the same weights on every device."""
+  column of each density output layer (`density_layer.2`, `density_out`)
+  zeroed when the config asks for density_zero_init, hash tables uniform
+  in +-table_scale (the JAX HashEncoding init_std, 1e-4, by default) and
+  CP tables as `CPEncoding.reset_parameters` draws them. The draws come
+  from a CPU torch.Generator, so a seed gives the same weights on every
+  device."""
   gen = torch.Generator(device="cpu").manual_seed(seed)
   zero_density = model.config.density_zero_init
   for name, m in model.named_modules():
     if isinstance(m, nn.Linear):
       _lecun_normal_(m.weight, gen)
       m.bias.zero_()
-      if zero_density and name.endswith("density_layer.2"):
+      if zero_density and name.endswith(("density_layer.2", "density_out")):
         m.weight[0].zero_()
     elif isinstance(m, HashEncoding):
       draw = torch.empty(m.embeddings.shape, dtype=torch.float32)
       draw.uniform_(-table_scale, table_scale, generator=gen)
       m.embeddings.copy_(draw)
+    elif isinstance(m, CPEncoding):
+      m.reset_parameters(gen)
   return model

@@ -9,7 +9,9 @@
   confidence on (the vgg mode included), and eval with --lpips.
 - configs/waymo_zipnerf on a tiny Waymo layout (dataset_type waymo):
   train, eval of the train views, and render --render_mode random, whose
-  poses are the JAX package's for the same scene and seed.
+  poses are the JAX package's for the same scene and seed; and
+  configs/waymo_zipnerf_tpu (the cp_hash arm) at narrow widths, eval and
+  render reading the EMA weights.
 - What has no port yet raises, and without a card the entry points
   raise instead of running on the CPU.
 
@@ -17,6 +19,7 @@ tests/test_torch_cli_parity.py holds cli.eval against the JAX package on
 the same weights.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -220,6 +223,61 @@ def test_waymo_zip_train_eval_and_random_render(tmp_path):
                                                    want.intrinsics),
                     ("raw_target_poses", raw)):
     assert np.array_equal(np.load(os.path.join(rdir, f"{name}.npy")), arr)
+
+
+# configs/waymo_zipnerf_tpu (cp_hash, the cylinder cast, an 8-deep trunk
+# with a skip, EMA) at narrow widths
+CP_NARROW = ["--zip_cp_num_levels", "2", "--zip_cp_level_dim", "4",
+             "--zip_cp_base_resolution", "16", "--zip_cp_max_resolution",
+             "32", "--zip_cp_hash_resolution", "64", "--zip_cp_hash_log2",
+             "10", "--zip_ipe_density_width", "16",
+             "--zip_density_hidden_width", "16", "--zip_ipe_max_deg", "4",
+             "--zip_bottleneck_width", "32"]
+
+
+def test_waymo_zip_tpu_train_eval_and_render_from_the_ema(tmp_path,
+                                                          monkeypatch):
+  """configs/waymo_zipnerf_tpu as shipped but for narrow widths and
+  float32 (its scan_render = True does not raise): train, then eval and
+  render, both from the EMA weights: with the swap stubbed out they give
+  other numbers."""
+  from test_torch_waymo import write_layout
+  data = write_layout(str(tmp_path / "waymo"), 19, 27)
+  base = str(tmp_path / "exp")
+  args = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf_tpu"),
+          "--datadir", data, "--basedir", base, *CPU]
+  state = cli_train.main(args + [*ZIP_NARROW, *CP_NARROW,
+                                 "--zip_max_steps", "3", "--i_print", "1",
+                                 "--zip_patch_size", "4"])
+  assert state.step == 3 and state.ema is not None
+  cfg = state.model.config
+  assert (cfg.encoder_type, cfg.cp_anisotropic, cfg.cp_feature_center,
+          cfg.ipe_density_depth, cfg.ipe_skip_layer) == ("cp_hash", True,
+                                                         True, 8, 4)
+  params = dict(state.model.named_parameters())
+  assert any(not torch.equal(params[k], v) for k, v in state.ema.items())
+  exp = os.path.join(base, "waymo_zip_tpu")
+  losses = [e["loss"] for e in _log(exp) if "loss" in e]
+  assert len(losses) == 3 and all(np.isfinite(losses))
+  summary = cli_eval.main(args + ["--eval_test", "False"])
+  assert len(summary["per_image"]) == 8 and np.isfinite(
+      summary["mean_psnr"])
+  rdir = cli_render.main(args + ["--render_mode", "random", "--render_n",
+                                 "2", "--render_seed", "3"])
+  ema_rgb = read_png(os.path.join(rdir, "rgb", "00000.png"))
+  assert ema_rgb.shape == (19, 27, 3)
+  @contextlib.contextmanager
+  def raw_weights(state):
+    yield state.model
+
+  for module in (cli_eval, cli_render):
+    monkeypatch.setattr(module, "eval_weights", raw_weights)
+  raw_summary = cli_eval.main(args + ["--eval_test", "False"])
+  assert raw_summary["mean_psnr"] != summary["mean_psnr"]
+  cli_render.main(args + ["--render_mode", "random", "--render_n", "2",
+                          "--render_seed", "3"])
+  assert not np.array_equal(
+      read_png(os.path.join(rdir, "rgb", "00000.png")), ema_rgb)
 
 
 def test_unported_paths_raise(tmp_path):

@@ -7,6 +7,7 @@ import inspect
 
 import pytest
 
+from snerf_tpu_torch.models.cpgrid import CPEncoding
 from snerf_tpu_torch.models.hashgrid import HashEncoding
 from snerf_tpu_torch.models.mipnerf import MipNerfModel
 from snerf_tpu_torch.models.mlp import DenseBlock, NerfMLP, ProposalMLP
@@ -17,7 +18,7 @@ from snerf_tpu_torch.train.zip_trainer import create_zip_train_state
 
 ENTRY_POINTS = [MipNerfModel, ZipNerfModel, create_train_state,
                 create_zip_train_state, LearnPose, HashEncoding, ZipMLP,
-                NerfMLP, ProposalMLP, DenseBlock]
+                NerfMLP, ProposalMLP, DenseBlock, CPEncoding]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)

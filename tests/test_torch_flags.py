@@ -113,3 +113,24 @@ def test_zip_model_config_stays_f32_for_bf16_flags():
       .zip_model_config())
   assert all(want[k] == v for k, v in got.items())
   assert "compute_dtype" not in got
+
+
+def test_waymo_zipnerf_tpu_adapters_match_jax():
+  """configs/waymo_zipnerf_tpu (the cp_hash arm, float32): the port's
+  zip_model_config and zip_train_config build the fields of JAX's
+  Config methods, every zip_ipe_* and zip_cp_* flag carried; the JAX
+  model fields the port leaves out are the compute dtype and those of
+  the unported GLO embedding and RefNeRF head."""
+  argv = ["--config", os.path.join(REPO, "configs", "waymo_zipnerf_tpu"),
+          "--zip_compute_dtype", "float32"]
+  cfg, jcfg = flags.load_config(argv), jconfig.load_config(argv)
+  got = dataclasses.asdict(tconfig.zip_model_config(cfg))
+  want = dataclasses.asdict(jcfg.zip_model_config())
+  assert set(want) - set(got) == {"compute_dtype", "num_glo_embeddings",
+                                  "roughness_bias"}
+  assert {k: want[k] for k in got} == got
+  assert (got["encoder_type"], got["cp_level_dim"], got["cp_anisotropic"],
+          got["cp_feature_center"], got["ipe_density_width"],
+          got["density_zero_init"]) == ("cp_hash", 64, True, True, 512, True)
+  assert (dataclasses.asdict(tconfig.zip_train_config(cfg))
+          == dataclasses.asdict(jcfg.zip_train_config()))

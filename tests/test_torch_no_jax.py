@@ -1,5 +1,6 @@
 """The port (the mip and zip render paths, both train steps, the mip one
-with the depth confidence, and the entry points on the realfocal fixture
+with the depth confidence, the cp_hash train step and the ipe render,
+and the entry points on the realfocal fixture
 with the confidence and --lpips) runs where JAX, imageio, cv2,
 PIL and TensorBoard are absent, as on the card's machine, and loads no
 module of snerf_tpu; chip_smoke.py refuses to run without a CUDA card
@@ -116,6 +117,39 @@ zlosses = [float(zstep(zstate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in zlosses), zlosses
 assert zstate.step == 2
 print("ZIP TRAINED", zstate.step)
+# the ipe and CP arms: configs/waymo_zipnerf_tpu (cp_hash) trains, an
+# anisotropic ipe model renders
+aflags = load_config(["--config", "configs/waymo_zipnerf_tpu",
+                      "--zip_num_prop_samples", "(8, 8)",
+                      "--zip_num_nerf_samples", "8",
+                      "--zip_prop_grid_resolutions", "(64, 128)",
+                      "--zip_cp_num_levels", "2", "--zip_cp_level_dim", "4",
+                      "--zip_cp_base_resolution", "16",
+                      "--zip_cp_max_resolution", "32",
+                      "--zip_cp_hash_resolution", "64",
+                      "--zip_cp_hash_log2", "10",
+                      "--zip_ipe_density_width", "16",
+                      "--zip_density_hidden_width", "16",
+                      "--zip_ipe_max_deg", "4", "--zip_bottleneck_width", "32",
+                      "--zip_batch_size", "32", "--zip_patch_size", "2",
+                      "--zip_compute_dtype", "float32"])
+astate = create_zip_train_state(0, zip_model_config(aflags),
+                                zip_train_config(aflags), zscene.num_images,
+                                device="cpu")
+astep = make_zip_train_step(astate.model, zip_train_config(aflags),
+                            scene_to_device(zscene, "cpu"), zscene.i_train,
+                            zscene.near, zscene.far)
+alosses = [float(astep(astate, gen)["loss"]) for _ in range(2)]
+assert all(math.isfinite(v) for v in alosses), alosses
+assert astate.ema is not None
+print("CP TRAINED", astate.step)
+import dataclasses
+ipe_cfg = dataclasses.replace(zip_model_config(aflags), encoder_type="ipe",
+                              ipe_anisotropic=True)
+imodel = zip_init_(ZipNerfModel(ipe_cfg, device="cpu"), seed=0)
+iout = render_image(make_zip_eval_render_fn(imodel), rays, chunk=6)
+assert all(bool(torch.isfinite(v).all()) for v in iout.values())
+print("IPE RENDERED", tuple(iout["rgb"].shape))
 # the entry points as `python -m` runs them: 2 steps, then the eval
 base = tempfile.mkdtemp()
 fixture = ["--config", "configs/nuScenes_depth_6cams", "--datadir",
@@ -136,7 +170,8 @@ jax_side = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "flax", "snerf_tpu", "imageio",
                         "cv2", "PIL", "tensorboard")))
 assert jax_side == [], jax_side
-for name in ("models.confidence", "models.features", "data.waymo"):
+for name in ("models.confidence", "models.features", "data.waymo",
+             "models.cpgrid"):
   assert "snerf_tpu_torch." + name in sys.modules, name
 print("RENDERED", tuple(out["rgb"].shape))
 """
@@ -155,6 +190,8 @@ def test_port_imports_and_renders_with_jax_blocked():
   assert "ZIP RENDERED (4, 4, 3)" in proc.stdout
   assert "TRAINED 2" in proc.stdout
   assert "ZIP TRAINED 2" in proc.stdout
+  assert "CP TRAINED 2" in proc.stdout
+  assert "IPE RENDERED (4, 4, 3)" in proc.stdout
   assert "CLI RAN" in proc.stdout
 
 

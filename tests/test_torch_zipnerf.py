@@ -203,7 +203,7 @@ def test_zip_model_config_matches_jax_adapter():
 
 
 @pytest.mark.parametrize("flag", [
-    ("--zip_encoder", "cp_hash"), ("--zip_encoder", "ipe"),
+    ("--zip_encoder", "cp_tri"), ("--zip_encoder", "mipcast"),
     ("--zip_glo_features", "4"), "disable_density_normals",
     "enable_pred_normals", "use_directional_enc", "use_reflections",
     "enable_pred_roughness"])
