@@ -7,10 +7,10 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. float32 numerics: TF32 off for matmuls and cuDNN;
   3. build: every kernel in csrc/, one nvcc process each, all at once;
-     the ptxas lines (registers, spills: K1's three wgmma kernels and the
-     fused encode's kernels must spill nothing); the SASS of K1's f32
-     forward, dgrad and wgrad kernels (cuobjdump -sass) must hold wgmma
-     (HGMMA) and TMA loads (UTMALDG);
+     the ptxas lines (registers, spills: K1's six wgmma kernels and the
+     fused encode's kernels must spill nothing); the SASS of K1's f32 and
+     bf16 forward, dgrad and wgrad kernels (cuobjdump -sass) must hold
+     wgmma (HGMMA) and TMA loads (UTMALDG);
   4. kernel K1 against plain: tf32_split bit-equal to tf32_split_plain at
      the fine and proposal trunks' weight shapes and on special values
      (signed zeros, inf, NaN, subnormals, ties); the fused-MLP kernel
@@ -100,8 +100,8 @@ Phases, each fatal on failure:
      must exceed them; then its time per base image at 900 x 1600 on a
      seeded 3-view scene against the VGG's f32 bound;
   8. zip train slice: the shipped waymo_zipnerf training step at full
-     width (zip_lr_delay 0, zip_compute_dtype float32: JAX trains bf16
-     zip MLPs, the port f32 until B.2) on the same scene with semantic
+     width (zip_lr_delay 0, zip_compute_dtype float32: the f32 step; the
+     shipped bf16 one is phase 11b's) on the same scene with semantic
      labels from depth quantiles and an object mask on one corner, batch
      32768: 2 warm-up and 12 timed steps (s/step, rays/s, peak memory, 3
      fused encode forwards and 3 backwards a step, no K2 gather or
@@ -135,9 +135,9 @@ Phases, each fatal on failure:
      9c. cli.train, cli.eval (the train views) and cli.render
        --render_mode random --render_n 2 with configs/waymo_zipnerf at
        full width, dataset_type waymo, on a Waymo-layout copy of the
-       fixture written at run time (--zip_compute_dtype float32), 20
-       steps: the fused encode 3 forwards and 3 backwards a step, K2
-       never; the random render's file set;
+       fixture written at run time (as shipped: bf16 MLPs), 20 steps:
+       the fused encode 3 forwards and 3 backwards a step, K2 never; the
+       random render's file set;
      9d. the mip quality cell (snerf_tpu_torch.bench_quality, family
        mip) for its 2,000 steps, seed 0, read at steps 500, 1,000 and
        2,000 beside the JAX package's seeds: held-out PSNR at 2,000 at
@@ -153,18 +153,43 @@ Phases, each fatal on failure:
        kernel alone against its plain version and one PyTorch call;
      10b. the fused encode at the fine level (L 1, C 4, 2^19 rows at
        2,048) on uniform positions and on the positions and output
-       gradient captured in one cp_hash step: forward bit-equal, table
-       gradient within SCATTER_TOL of an f64 control beside a fault
-       reading; one cp_hash step under torch.profiler (K1, the encode,
-       the CP encode's profiles and matmuls, the other GEMMs, idle);
-     10c. cli.train with the config (--zip_compute_dtype float32
-       --zip_lr_delay 0) on the Waymo-layout copy of the fixture, 2 + 10
-       steps at the shipped batch: s/step, peak memory, K1 12 forwards
-       (6 runs, each recomputed by the trunk checkpoint) and 21 of each
-       backward kernel a step, the encode 1 + 1, K2 never; a falling loss
-       and EMA weights apart from the raw ones; cli.eval of the 42 train
-       views (6 K1 forwards and 1 encode a chunk) and a 2-pose random
-       cli.render, both from the EMA weights.
+       gradient captured in one f32 cp_hash step (--zip_compute_dtype
+       float32), its launches counted: forward bit-equal, table gradient
+       within SCATTER_TOL of an f64 control beside a fault reading; one
+       f32 cp_hash step under torch.profiler (K1, the encode, the CP
+       encode's profiles and matmuls, the other GEMMs, idle);
+     10c. cli.train with the config as shipped (bf16 MLPs) but
+       --zip_lr_delay 0 on the Waymo-layout copy of the fixture, 2 + 10
+       steps at the shipped batch: s/step, peak memory, K1's bf16
+       forward 12 times (6 runs, each recomputed by the trunk checkpoint)
+       and its bf16 dgrad, wgrad and the reduce 21 times a step, no f32
+       K1, the encode 1 + 1, K2 never; a falling loss and EMA weights
+       apart from the raw ones; cli.eval of the 42 train views in float32
+       (6 f32 K1 forwards and 1 encode a chunk) and a 2-pose random
+       cli.render, both from the EMA weights;
+ 11. the bf16 trunks (configs/waymo_zipnerf and waymo_zipnerf_tpu as
+     shipped, bench.py's mip model):
+     11a. K1's bf16 kernels at the training paths' shapes (a cp_hash
+       proposal trunk's 2,097,152 rows and the nerf trunk's 1,048,576 at
+       D 512, runs of 4 and 3; bench.py's fine trunk at 520,192 x 1024,
+       runs of 4 and 2, its proposal at 524,288 x 256 x 3): the forward
+       (eval and keeping its layers, bit-equal to each other) against
+       fused_mlp_plain and the backward against fused_mlp_bwd_plain in
+       bf16, within BF16_FWD_TOL / BF16_BWD_TOL of max|plain| per tensor,
+       each beside a fault reading (the plain versions with W's first
+       k-tile of every layer zeroed) that must exceed it, two backward
+       runs bit-identical; CUDA-event times in turns with the plain
+       versions, and each backward kernel alone against its plain version
+       and one bf16 PyTorch call (dz @ w.T, act.T @ dz);
+     11b. one bf16 train step each of waymo_zipnerf and waymo_zipnerf_tpu
+       as shipped (zip_lr_delay 0) on the synthetic scene: s/step over 3
+       steps, peak memory, the launches of one step (the cp_hash step:
+       K1's bf16 forward 12, dgrad / wgrad / reduce 21, no f32 K1), one
+       step under torch.profiler; the cp_hash step against the same
+       weights and draws with K1's plain bf16 versions (BF16_STEP_GRAD_TOL
+       per tensor) beside the f32 step as a control, which must exceed it;
+     11c. the bench line (python -m snerf_tpu_torch.bench: bench.py's mip
+       model in bf16), its rays/s, precision and K1 launches a step.
 Each phase prints its seconds. The kernels line lists every kernel with
 its path's launch counts (the mip train step for fused_mlp, tf32_split
 and the three backward kernels, the zip train step for the fused encode,
@@ -177,6 +202,10 @@ shape), its time at the path's
 shapes beside its plain version's, its bound (the larger of its bytes
 over HBM_RATE and its operations over their peak rate) and the time of
 one PyTorch call computing the same function, where there is one.
+The kernels line then adds K1's bf16 kernels at the cp_hash trunks with
+the launches of 11b's bf16 cp_hash step (10b's f32 step gives the f32
+rows at those shapes theirs) and at bench.py's shapes with those of the
+bench line (11c).
 The last line is {"ok": true, "device": {...}}; without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -194,6 +223,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 4096 * 128          # one chunk of rays x 128 samples
+TRAIN_FINE_ROWS = 4096 * 127  # the mip train step's fine level: 127 intervals
 # (atol, rtol). f32: the kernel's 3xTF32 products are ~2^-21 relative, but
 # the tensor cores' f32 accumulation truncates; over 384 MMA steps a row
 # (D = 1024) that drifts ~3e-5 on O(1) outputs. On an H100 the wgmma
@@ -657,11 +687,7 @@ def profile_step(torch, step_fn, what="step"):
     wall_ms = (time.perf_counter() - t0) * 1e3
 
   def kind(name):
-    for key, label in (("k1_wgmma_kernel<false>", "K1 forward"),
-                       ("tf32_split", "K1 tf32_split"),
-                       ("k1_wgmma_kernel<true>", "K1 dgrad"),
-                       ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
-                       ("fused_mlp_bwd_reduce", "K1 wgrad + reduce")):
+    for key, label in K1_PROFILE_KINDS:
       if key in name:
         return label
     if "gemm" in name.lower() or "gemv" in name.lower():
@@ -1218,9 +1244,9 @@ def zip_slice(torch, scene, views, view_rays, card):
 
 
 def sass_check(so, nvcc):
-  """The SASS of K1's f32 forward, dgrad and wgrad kernels in the built
-  library (cuobjdump -sass, beside nvcc): each must hold wgmma (HGMMA) and
-  TMA loads (UTMALDG)."""
+  """The SASS of K1's f32 and bf16 forward, dgrad and wgrad kernels in
+  the built library (cuobjdump -sass, beside nvcc): each must hold wgmma
+  (HGMMA) and TMA loads (UTMALDG)."""
   tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
   out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                        text=True, timeout=120)
@@ -1228,7 +1254,10 @@ def sass_check(so, nvcc):
   found = {}
   labels = (("f32 forward", "k1_wgmma_kernelILb0E"),
             ("dgrad", "k1_wgmma_kernelILb1E"),
-            ("wgrad", "fused_mlp_bwd_wgrad_kernel"))
+            ("wgrad", "fused_mlp_bwd_wgrad_kernel"),
+            ("bf16 forward", "k1_bf16_kernelILb0E"),
+            ("bf16 dgrad", "k1_bf16_kernelILb1E"),
+            ("bf16 wgrad", "k1_bf16_wgrad_kernel"))
   for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
     name = body.split("\n", 1)[0].strip()
     for label, key in labels:
@@ -1242,13 +1271,15 @@ def sass_check(so, nvcc):
 
 
 def spill_check(build_log):
-  """ptxas's spill stores and loads of K1's wgmma kernels (forward, dgrad,
-  wgrad) from the build's -v lines: each must be 0."""
-  k1 = spill_lines(build_log, ("k1_wgmma_kernel",
+  """ptxas's spill stores and loads of K1's wgmma kernels (f32 and bf16
+  forward, dgrad, wgrad) from the build's -v lines: each must be 0."""
+  k1 = spill_lines(build_log, ("k1_wgmma_kernel", "k1_bf16_kernel",
+                               "k1_bf16_wgrad_kernel",
                                "fused_mlp_bwd_wgrad_kernel"))
+  short = lambda n: re.search(r"\d((k1|fused_mlp_bwd)_\w+)", n).group(1)[:32]
   log(f"  spill stores/loads of K1's wgmma kernels: "
-      f"{ {n[-40:]: v[:2] for n, v in k1.items()} }")
-  check(len(k1) == 3, f"ptxas lines of K1's three wgmma kernels not found: "
+      f"{ {short(n): v[:2] for n, v in k1.items()} }")
+  check(len(k1) == 6, f"ptxas lines of K1's six wgmma kernels not found: "
         f"{sorted(k1)}")
   check(all(v[:2] == (0, 0) for v in k1.values()), f"K1's wgmma kernels "
         f"spill: {k1}")
@@ -1854,11 +1885,13 @@ def profile_zip_step(torch, step_fn, model):
   return out
 
 
-def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf"):
+def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf",
+                    shipped_dtype=False):
   """The training step of `config` (waymo_zipnerf by default) at full
   width on the synthetic scene with semantic labels from depth quantiles
-  and an object mask on one corner: (zcfg, tcfg, zscene, dev_scene,
-  state, step)."""
+  and an object mask on one corner, its MLPs in float32 or, with
+  shipped_dtype, in the config's zip_compute_dtype (bf16): (zcfg, tcfg,
+  zscene, dev_scene, state, step)."""
   import dataclasses
 
   import numpy as np
@@ -1868,11 +1901,14 @@ def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf"):
   from snerf_tpu_torch.train import zip_trainer as zt
 
   # lr_delay 0: the shipped 5,000-step warm-up starts at lr 1e-10.
-  # zip_compute_dtype float32: JAX trains bf16 zip MLPs here, the port
-  # trains f32 until B.2 (zip_train_config raises on bf16 flags).
+  # The f32 steps (phases 8, 10b) set zip_compute_dtype float32; the
+  # shipped configs train bf16 MLPs (phase 11b).
   cfg = load_config(["--config", os.path.join(ROOT, "configs", config),
-                     "--zip_lr_delay", "0", "--zip_compute_dtype", "float32"])
-  zcfg, tcfg = zip_model_config(cfg), zip_train_config(cfg)
+                     "--zip_lr_delay", "0"]
+                    + ([] if shipped_dtype else
+                       ["--zip_compute_dtype", "float32"]))
+  zcfg = zip_model_config(cfg)
+  tcfg = zip_train_config(cfg)
   # semantic labels from depth quantiles, an object mask on one corner
   depth = scene.depths
   edges = np.quantile(depth, np.linspace(0, 1, zcfg.class_num + 1)[1:-1])
@@ -1893,7 +1929,8 @@ def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf"):
         f"{zcfg.class_num} classes, lr {tcfg.lr_init} -> {tcfg.lr_final}, "
         f"grad clip {tcfg.grad_max_norm}, depth {tcfg.depth_loss_mult} "
         f"(completion {tcfg.depth_complete}), semantic "
-        f"{tcfg.semantic_loss_mult}, float32 (JAX: bf16 MLPs); scene "
+        f"{tcfg.semantic_loss_mult}, {str(zcfg.compute_dtype)[6:]} MLPs; "
+        f"scene "
         f"{scene.images.shape[1]}x{scene.images.shape[2]}, "
         f"{len(scene.i_train)} train views")
   dev_scene = scene_to_device(zscene, "cuda")
@@ -2039,6 +2076,15 @@ CELL_STEPS = 2000
 JAX_CELL_PSNR = {500: (28.39, 27.66, 27.80), 1000: (31.42, 31.37, 31.45),
                  2000: (34.07, 34.27, 34.80)}
 CELL_PSNR_FLOOR = min(JAX_CELL_PSNR[CELL_STEPS]) - 1.5
+# K1's kernels by name in a profile, f32 and bf16
+K1_PROFILE_KINDS = (("k1_wgmma_kernel<false>", "K1 forward"),
+                    ("k1_bf16_kernel<false", "K1 forward"),
+                    ("tf32_split", "K1 tf32_split"),
+                    ("k1_wgmma_kernel<true>", "K1 dgrad"),
+                    ("k1_bf16_kernel<true", "K1 dgrad"),
+                    ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
+                    ("k1_bf16_wgrad_kernel", "K1 wgrad + reduce"),
+                    ("fused_mlp_bwd_reduce", "K1 wgrad + reduce"))
 K1_KERNELS = ("fused_mlp", "tf32_split", "fused_mlp_bwd_dgrad",
               "fused_mlp_bwd_wgrad", "fused_mlp_bwd_reduce")
 ENCODE_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "hash_gather",
@@ -2055,6 +2101,9 @@ def launch_counters():
           "fused_mlp_bwd_dgrad": fm.fused_mlp_bwd_dgrad,
           "fused_mlp_bwd_wgrad": fm.fused_mlp_bwd_wgrad,
           "fused_mlp_bwd_reduce": fm.fused_mlp_bwd_reduce,
+          "fused_mlp_fwd_bf16": fm.fused_mlp_fwd_bf16,
+          "fused_mlp_bwd_dgrad_bf16": fm.fused_mlp_bwd_dgrad_bf16,
+          "fused_mlp_bwd_wgrad_bf16": fm.fused_mlp_bwd_wgrad_bf16,
           "hash_encode_fwd": he.hash_encode_fwd,
           "hash_encode_bwd": he.hash_encode_bwd,
           "hash_gather": hash_ops.gather_rows,
@@ -2514,12 +2563,14 @@ def zip_cli_phase(torch, base):
   common = ["--config", os.path.join(ROOT, "configs", "waymo_zipnerf"),
             "--datadir", data, "--basedir", base, "--device", "cuda"]
   log("[entry points] cli.train waymo_zipnerf (dataset_type waymo, 19 "
-      "semantic classes) on a Waymo-layout copy of the fixture, "
-      f"--zip_compute_dtype float32, {steps} steps")
+      "semantic classes) on a Waymo-layout copy of the fixture, bf16 MLPs "
+      f"as shipped, {steps} steps")
   state, c_train = counted(lambda: cli_train.main(common + [
-      "--zip_compute_dtype", "float32", "--zip_max_steps", str(steps),
-      "--zip_lr_delay", "0", "--i_print", "5"]))
+      "--zip_max_steps", str(steps), "--zip_lr_delay", "0",
+      "--i_print", "5"]))
   check(state.step == steps, f"cli.train ended at {state.step}")
+  check(all(m.compute_dtype == torch.bfloat16 for m in state.model.mlps()),
+        "the shipped waymo_zipnerf did not train bf16 MLPs")
   del state
   torch.cuda.empty_cache()
   losses = [(e["step"], e["loss"]) for e in
@@ -2625,6 +2676,14 @@ TPU_PROP_ROWS, TPU_NERF_ROWS = 32768 * 64, 32768 * 32
 TPU_K1_RUNS = 6
 TPU_K1_BWD_PER_STEP = 21
 TPU_TRAIN_WARMUP, TPU_TRAIN_STEPS = 2, 10
+# K1 a bf16 cp_hash step (the shipped compute dtype): the same counts on
+# the bf16 kernels, which need no weight split, and no f32 launch
+TPU_BF16_STEP = {"fused_mlp": 0, "tf32_split": 0, "fused_mlp_bwd_dgrad": 0,
+                 "fused_mlp_bwd_wgrad": 0,
+                 "fused_mlp_fwd_bf16": 2 * TPU_K1_RUNS,
+                 "fused_mlp_bwd_dgrad_bf16": TPU_K1_BWD_PER_STEP,
+                 "fused_mlp_bwd_wgrad_bf16": TPU_K1_BWD_PER_STEP,
+                 "fused_mlp_bwd_reduce": TPU_K1_BWD_PER_STEP}
 
 
 def tpu_shapes_phase(torch):
@@ -2689,13 +2748,9 @@ def profile_cp_step(torch, step_fn, model):
       del m.forward
 
   def kind(name):
-    for key, label in (("k1_wgmma_kernel<false>", "K1 forward"),
-                       ("tf32_split", "K1 tf32_split"),
-                       ("k1_wgmma_kernel<true>", "K1 dgrad"),
-                       ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
-                       ("fused_mlp_bwd_reduce", "K1 wgrad + reduce"),
-                       ("hash_encode_fwd_kernel", "fused encode forward"),
-                       ("hash_encode_bwd_kernel", "fused encode backward")):
+    for key, label in K1_PROFILE_KINDS + (
+        ("hash_encode_fwd_kernel", "fused encode forward"),
+        ("hash_encode_bwd_kernel", "fused encode backward")):
       if key in name:
         return label
     return None
@@ -2726,18 +2781,27 @@ def profile_cp_step(torch, step_fn, model):
     by_name[e.name] = by_name.get(e.name, 0.0) + ms
     if kind(e.name):
       out[kind(e.name)] += ms
+  # Each CPU event's kernels go to its context, each kernel name within
+  # the device time that name took: a kernel listed under more than one
+  # event, or a record_function's device range ("cp_encode"), is not
+  # counted twice.
+  budget = dict(by_name)
   for e in events:
     if e.device_type == DeviceType.CPU and e.kernels:
       for k in e.kernels:
-        if not kind(k.name):
-          out[context(e, k.name)] += k.duration / 1e3
+        ms = min(k.duration / 1e3, budget.get(k.name, 0.0))
+        if not kind(k.name) and ms > 0:
+          budget[k.name] -= ms
+          out[context(e, k.name)] += ms
   if busy == 0:
     log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms; "
         "torch.profiler recorded no device time, breakdown not measured")
     return None
   out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
+  attributed = sum(out[k] for k in list(out)[:10])
   log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms, device busy "
-      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
+      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%; the "
+      f"breakdown attributes {attributed:.1f} ms of the busy time")
   for k in list(out)[:10]:
     log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
   for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -2766,7 +2830,12 @@ def tpu_encode_phase(torch, scene):
         and xf.shape[0] == TPU_NERF_ROWS,
         f"the fine level's shape: {spec}, {tuple(xf.shape)}")
   gen = torch.Generator(device="cuda").manual_seed(1)
-  step(state, gen)
+  _, counts = counted(lambda: step(state, gen))
+  log(f"  launches of one f32 cp_hash step: {counts}")
+  check(counts["fused_mlp"] == counts["tf32_split"] == 2 * TPU_K1_RUNS
+        and counts["fused_mlp_bwd_wgrad"] == TPU_K1_BWD_PER_STEP
+        and counts["fused_mlp_fwd_bf16"] == 0,
+        f"the f32 cp_hash step's K1 launches {counts}")
   prof = profile_cp_step(torch, lambda: step(state, gen), state.model)
   del state, step
   torch.cuda.empty_cache()
@@ -2781,19 +2850,20 @@ def tpu_encode_phase(torch, scene):
           "plain version")
   del xf, g
   torch.cuda.empty_cache()
-  return dict(enc=enc, prof=prof)
+  return dict(enc=enc, prof=prof, counts=counts)
 
 
 def tpu_cli_phase(torch, base, card):
-  """10c: cli.train with configs/waymo_zipnerf_tpu as shipped but for
-  --zip_compute_dtype float32 and --zip_lr_delay 0, on a Waymo-layout
-  copy of the realfocal fixture, TPU_TRAIN_WARMUP + TPU_TRAIN_STEPS steps
-  at the shipped batch: the step time (the train log's rays/s after the
-  warm-up), the peak device memory, the launches a step (K1 12 forward,
-  21 of each backward kernel; the fused encode 1 + 1; K2 never); a
-  falling loss and EMA weights apart from the raw ones. Then cli.eval on
-  the train views (6 K1 forwards and 1 encode a render chunk) and a 2-pose
-  cli.render --render_mode random, both from the EMA weights."""
+  """10c: cli.train with configs/waymo_zipnerf_tpu as shipped (bf16 MLPs)
+  but --zip_lr_delay 0, on a Waymo-layout copy of the realfocal fixture,
+  TPU_TRAIN_WARMUP + TPU_TRAIN_STEPS steps at the shipped batch: the step
+  time (the train log's rays/s after the warm-up), the peak device
+  memory, the launches a step (K1's bf16 forward 12, its bf16 dgrad and
+  wgrad and the reduce 21, no f32 K1; the fused encode 1 + 1; K2 never);
+  a falling loss and EMA weights apart from the raw ones. Then cli.eval
+  on the train views in float32 (6 f32 K1 forwards and 1 encode a render
+  chunk) and a 2-pose cli.render --render_mode random, both from the EMA
+  weights."""
   import numpy as np
   from snerf_tpu_torch.cli import eval as cli_eval
   from snerf_tpu_torch.cli import render as cli_render
@@ -2804,16 +2874,18 @@ def tpu_cli_phase(torch, base, card):
   common = ["--config", os.path.join(ROOT, "configs", TPU_CONFIG),
             "--datadir", data, "--basedir", base, "--device", "cuda"]
   log(f"[entry points] cli.train {TPU_CONFIG} (cp_hash, dataset_type waymo, "
-      f"19 classes) on a Waymo-layout copy of the fixture, "
-      f"--zip_compute_dtype float32 --zip_lr_delay 0, {steps} steps")
+      f"19 classes) on a Waymo-layout copy of the fixture, bf16 MLPs as "
+      f"shipped, --zip_lr_delay 0, {steps} steps")
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
   state, c_train = counted(lambda: cli_train.main(common + [
-      "--zip_compute_dtype", "float32", "--zip_max_steps", str(steps),
-      "--zip_lr_delay", "0", "--i_print", "1"]))
+      "--zip_max_steps", str(steps), "--zip_lr_delay", "0",
+      "--i_print", "1"]))
   peak = torch.cuda.max_memory_allocated()
   check(state.step == steps, f"cli.train ended at {state.step}")
+  check(all(m.compute_dtype == torch.bfloat16 for m in state.model.mlps()),
+        f"{TPU_CONFIG} did not train bf16 MLPs")
   cfg = state.model.config
   log(f"  model: {cfg.encoder_type}, CP {cfg.cp_num_levels} levels x "
       f"{cfg.cp_level_dim} ({cfg.cp_base_resolution}-"
@@ -2849,12 +2921,8 @@ def tpu_cli_phase(torch, base, card):
         f"cp_hash losses {losses}")
   check(last < first, f"the cp_hash loss did not fall: {losses}")
   check(ema_apart > 0, "the EMA weights equal the raw ones")
-  expected = {"fused_mlp": 2 * TPU_K1_RUNS, "tf32_split": 2 * TPU_K1_RUNS,
-              "fused_mlp_bwd_dgrad": TPU_K1_BWD_PER_STEP,
-              "fused_mlp_bwd_wgrad": TPU_K1_BWD_PER_STEP,
-              "fused_mlp_bwd_reduce": TPU_K1_BWD_PER_STEP,
-              "hash_encode_fwd": 1, "hash_encode_bwd": 1, "hash_gather": 0,
-              "hash_scatter_add": 0}
+  expected = dict(TPU_BF16_STEP, hash_encode_fwd=1, hash_encode_bwd=1,
+                  hash_gather=0, hash_scatter_add=0)
   check(per_step == expected, f"cp_hash launches a step {per_step}, "
         f"expected {expected}")
 
@@ -2889,6 +2957,391 @@ def tpu_cli_phase(torch, base, card):
         f"cli.render's cp_hash launches {c_render}")
   return dict(train=c_train, eval=c_eval, render=c_render, step_s=step_s,
               peak=peak, losses=losses, summary=summary)
+
+
+# Phase 11: the bf16 trunks. K1's bf16 kernels at the shapes of the bf16
+# training paths: a cp_hash proposal trunk's 2,097,152 rows and the nerf
+# trunk's 1,048,576 at D 512 (runs of 4 and 3 layers), bench.py's mip
+# model's fine trunk at 520,192 x 1024 (runs of 4 and 2; the bench
+# step's 4,096 rays x 127 intervals, a ragged last wgrad split) and its
+# proposal trunk at 524,288 x 256 x 3.
+BF16_CASES = (
+    ("bf16 cp_hash proposal ipe_1..4", TPU_PROP_ROWS, 512, 4),
+    ("bf16 cp_hash proposal ipe_6..density_hidden", TPU_PROP_ROWS, 512, 3),
+    ("bf16 cp_hash nerf ipe_1..4", TPU_NERF_ROWS, 512, 4),
+    ("bf16 cp_hash nerf ipe_6..density_hidden", TPU_NERF_ROWS, 512, 3),
+    ("bf16 bench fine trunk_1..4", TRAIN_FINE_ROWS, 1024, 4),
+    ("bf16 bench fine trunk_6..7", TRAIN_FINE_ROWS, 1024, 2),
+    ("bf16 bench proposal trunk_1..3", ROWS, 256, 3),
+)
+# K1's bf16 kernels against their plain versions on the card, as a
+# fraction of max|plain| per tensor (out; dx, dW, db). Both round the f32
+# sums once to bf16, the kernels' sums in another order, so an output
+# sitting at a rounding edge lands one bf16 ulp apart (2^-8 of it): on an
+# H100 the kernels read at most 6.9e-3 (forward, 524,288 x 1024 x 4) and
+# 5.2e-3 (backward) at 11a's shapes over two runs. A fault, the plain
+# versions with the first 64-deep k-tile of every layer's W zeroed, read at
+# least 0.33 on every tensor; the run reads it beside each limit.
+BF16_FWD_TOL = 2e-2
+BF16_BWD_TOL = 2e-2
+# One bf16 cp_hash step against the same weights and draws whose trunks
+# run K1's plain bf16 versions (the same roundings, other sums), beside
+# the f32 step on them as a control. The trunk (every ipe_layers and
+# density_hidden gradient, K1's layers, relative L2 over them together):
+# on an H100 the sound step read at most 1.8e-3 a tensor, the control at
+# least 4.7e-3 a tensor; the limit sits between and the control must read
+# above it. The loss: 0 against the control's 1.4e-5. Every tensor is
+# bounded at BF16_STEP_GRAD_TOL: the worst read 1.0e-2, hash_fine's table,
+# whose rows sum the fine level's updates by atomics in any order; the
+# control's rgb head reads 7.4e-4 (its inputs' bf16 rounding barely moves
+# it), so that bound separates nothing and only catches wiring.
+BF16_STEP_TRUNK_TOL = 3e-3
+BF16_STEP_GRAD_TOL = 2e-2
+BF16_STEP_LOSS_TOL = 5e-6
+
+
+def _fault_w(w):
+  """w with the first 64-deep k-tile (W's first 64 input rows) of every
+  layer zeroed: a dropped stage of the kernels' k loop."""
+  wf = w.clone()
+  wf[:, :64] = 0
+  return wf
+
+
+def bf16_case(torch, fm, name, n, d, n_layers, iters):
+  """11a at one shape: K1's bf16 forward (eval and keeping its layers) and
+  backward against fused_mlp_plain / fused_mlp_bwd_plain in bf16 on the
+  card, each beside its fault reading; two backward runs bit-identical;
+  CUDA-event times in turns with the plain versions; the bounds."""
+  gen = torch.Generator(device="cuda").manual_seed(n * 3 + d + n_layers)
+  bf16 = torch.bfloat16
+  x = (torch.randn(n, d, generator=gen, device="cuda") * 0.5).to(bf16)
+  limit = (6.0 / (2 * d)) ** 0.5
+  w = ((torch.rand(n_layers, d, d, generator=gen, device="cuda") * 2 - 1)
+       * limit).to(bf16)
+  b = ((torch.rand(n_layers, 1, d, generator=gen, device="cuda") * 2 - 1)
+       * 0.1).to(bf16)
+  g = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+  with torch.no_grad():
+    got = fm.fused_mlp(x, w, b, True)
+    out, kept = fm._launch_fwd(x, w, b, True, keep=True)
+    keep_equal = torch.equal(out, got)
+    want = fm.fused_mlp_plain(x, w, b, True)
+    fault = fm.fused_mlp_plain(x, _fault_w(w), b, True)
+  saved = ([] if kept is None else list(kept.unbind(0))) + [out]
+  scale = float(want.float().abs().max())
+  fwd_err = float((got.float() - want.float()).abs().max()) / scale
+  fwd_fault = float((got.float() - fault.float()).abs().max()) / scale
+  del want, fault
+  kb = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)
+  again = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)
+  torch.cuda.synchronize()
+  det = all(torch.equal(p, q) for p, q in zip(kb, again))
+  del again
+  pb = fm.fused_mlp_bwd_plain(x, w, b, saved, g, True)
+  errs = {k: e / max(m, 1e-30) for k, (e, m) in _rel_errs(kb, pb).items()}
+  del pb
+  fb = fm.fused_mlp_bwd_plain(x, _fault_w(w), b, saved, g, True)
+  faults = {k: e / max(m, 1e-30) for k, (e, m) in _rel_errs(kb, fb).items()}
+  del fb, kb
+  torch.cuda.empty_cache()
+  with torch.no_grad():
+    p1 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
+    k1 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
+    k2 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
+    p2 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
+  bp1 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                      True), iters)
+  bk1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
+                                                True), iters)
+  bk2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
+                                                True), iters)
+  bp2 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                      True), iters)
+  k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+  bk_ms, bp_ms = (bk1 + bk2) / 2, (bp1 + bp2) / 2
+  flop = 2.0 * n * d * d * n_layers
+  b_ms, b_by = bound_ms((2 * n * d + n_layers * (d * d + d)) * 2, flop,
+                        BF16_MMA_RATE)
+  log(f"  {name}: N={n} D={d} L={n_layers}: forward err {fwd_err:.2e} of "
+      f"max|plain| (fault {fwd_fault:.2e}, tol {BF16_FWD_TOL}), keeping "
+      f"its layers bit-equal to eval: {keep_equal}; backward "
+      f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (faults "
+      f"{ {k: f'{v:.2e}' for k, v in faults.items()} }, tol {BF16_BWD_TOL})"
+      f", two runs bit-equal: {det}")
+  log(f"    forward {k_ms:.3f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s; bound "
+      f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of it), plain "
+      f"{p_ms:.3f} ms [{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]; backward "
+      f"(dgrad + wgrad + reduce a layer) {bk_ms:.3f} ms "
+      f"({2 * flop / bk_ms / 1e9:.1f} TFLOP/s), plain {bp_ms:.3f} ms "
+      f"[{bk1:.3f}/{bk2:.3f} vs {bp1:.3f}/{bp2:.3f}]")
+  check(keep_equal, f"{name}: the forward keeping its layers differs from "
+        "the eval forward")
+  check(det, f"{name}: two bf16 backward runs differ")
+  check(fwd_err <= BF16_FWD_TOL < fwd_fault,
+        f"{name}: bf16 forward err {fwd_err} (fault {fwd_fault}, tol "
+        f"{BF16_FWD_TOL})")
+  check(all(errs[k] <= BF16_BWD_TOL < faults[k] for k in errs),
+        f"{name}: bf16 backward errs {errs} (faults {faults}, tol "
+        f"{BF16_BWD_TOL})")
+  del x, w, b, g, got, out, kept, saved
+  torch.cuda.empty_cache()
+  return dict(err=max(fwd_err, *errs.values()), fwd_err=fwd_err,
+              bwd_errs=errs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+              bound_by=b_by, bwd_ms=bk_ms, bwd_plain_ms=bp_ms)
+
+
+def bf16_kernel_times(torch, fm, n, d, iters):
+  """Each bf16 backward kernel alone at one layer of n rows x d: dgrad
+  against its plain version bf16((dz @ w.T) * (mask > 0)) in f32
+  accumulation and one bf16 PyTorch call, torch.matmul(dz, w.t()); wgrad
+  plus the reduce against act.T @ dz and dz.sum(0) in f32 and one bf16
+  call, act.t() @ dz. Errors as a fraction of max|plain|, CUDA-event
+  times in turns, the bounds (dgrad reads dz and the mask and writes its
+  output; wgrad reads act and dz and writes dW and db in f32)."""
+  gen = torch.Generator(device="cuda").manual_seed(13)
+  bf16, f32 = torch.bfloat16, torch.float32
+  dz = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
+  act = torch.relu(torch.randn(n, d, generator=gen, device="cuda")).to(bf16)
+  w = ((torch.rand(d, d, generator=gen, device="cuda") * 2 - 1)
+       * 0.05).to(bf16)
+  sm = torch.cuda.get_device_properties(0).multi_processor_count
+  rows, splits = fm.wgrad_splits(n, d, sm, bf16)
+  part_w = torch.empty(splits, d, d, dtype=f32, device="cuda")
+  part_b = torch.empty(splits, d, dtype=f32, device="cuda")
+  dw = torch.empty(d, d, dtype=f32, device="cuda")
+  db = torch.empty(d, dtype=f32, device="cuda")
+  out = torch.empty_like(dz)
+
+  def dgrad():
+    return fm.fused_mlp_bwd_dgrad_bf16(dz, w, act, out)
+
+  def dgrad_plain():
+    return ((dz.float() @ w.float().t()) * (act > 0)).to(bf16)
+
+  def wgrad():
+    fm.fused_mlp_bwd_wgrad_bf16(act, dz, part_w, part_b, rows)
+    fm.fused_mlp_bwd_reduce(part_w, part_b, dw, db)
+    return dw, db
+
+  def wgrad_plain():
+    return act.float().t() @ dz.float(), dz.float().sum(0)
+
+  res = {}
+  for name, kern, plain, library, nbytes in (
+      ("fused_mlp_bwd_dgrad_bf16", dgrad, dgrad_plain,
+       lambda: torch.matmul(dz, w.t()), (3 * n * d + d * d) * 2),
+      ("fused_mlp_bwd_wgrad_bf16", wgrad, wgrad_plain,
+       lambda: act.t() @ dz, 2 * n * d * 2 + (d * d + d) * 4)):
+    got, want = kern(), plain()
+    library()  # cuBLAS picks its algorithm on a first call: not timed
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+    err = max(float((a.float() - p.float()).abs().max()) for a, p in pairs)
+    scale = max(float(p.float().abs().max()) for _, p in pairs)
+    p1 = time_ms(torch, plain, iters)
+    k1 = time_ms(torch, kern, iters)
+    k2 = time_ms(torch, kern, iters)
+    p2 = time_ms(torch, plain, iters)
+    lib = time_ms(torch, library, iters)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    flop = 2.0 * n * d * d
+    b_ms, b_by = bound_ms(nbytes, flop, BF16_MMA_RATE)
+    log(f"  {name} alone, N={n} D={d}"
+        + (f" (splits {splits} x {rows} rows)" if "wgrad" in name else "")
+        + f": err {err / scale:.2e} of max|plain|; kernel {k_ms:.3f} ms "
+        f"({flop / k_ms / 1e9:.1f} TFLOP/s, bound {b_ms:.3f} ms ({b_by}), "
+        f"{100 * b_ms / k_ms:.1f}% of it), plain {p_ms:.3f} ms, one bf16 "
+        f"PyTorch call {lib:.3f} ms [{k1:.3f}/{k2:.3f} vs {p1:.3f}/"
+        f"{p2:.3f}]")
+    check(err <= BF16_BWD_TOL * scale, f"{name} at N={n} D={d} disagrees "
+          f"with plain: {err / scale}")
+    res[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib,
+                     bound_ms=b_ms, bound_by=b_by)
+  del dz, act, w, part_w, part_b, dw, db, out
+  torch.cuda.empty_cache()
+  return res
+
+
+def bf16_shapes_phase(torch):
+  """11a: K1's bf16 kernels at BF16_CASES (bf16_case) and each backward
+  kernel alone at each layer shape (bf16_kernel_times)."""
+  from snerf_tpu_torch.ops import fused_mlp as fm
+
+  log("[kernel] K1 in bf16 (wgmma m64n256k16 bf16, TMA) against its plain "
+      "bf16 versions at the bf16 training paths' shapes")
+  cases = {c[0]: bf16_case(torch, fm, *c, 3) for c in BF16_CASES}
+  alone = {(n, d): bf16_kernel_times(torch, fm, n, d, 3)
+           for n, d in sorted({(c[1], c[2]) for c in BF16_CASES})}
+  return dict(cases=cases, alone=alone)
+
+
+class PlainBf16Stack:
+  """A stack_fn of K1's plain versions under autograd, as lean as the
+  kernels: the forward keeps its bf16 layers (fused_mlp_plain's), the
+  backward is fused_mlp_bwd_plain on them."""
+
+  def __init__(self, torch, fm):
+    class Fn(torch.autograd.Function):
+      @staticmethod
+      def forward(ctx, x, w, b, last_relu):
+        *layers, out = fm._plain_layers(x, w, b, last_relu)
+        ctx.last_relu = bool(last_relu)
+        ctx.save_for_backward(x, w, b, *layers, out)
+        return out
+
+      @staticmethod
+      def backward(ctx, g):
+        x, w, b, *saved = ctx.saved_tensors
+        return (*fm.fused_mlp_bwd_plain(x, w, b, saved, g.contiguous(),
+                                        ctx.last_relu), None)
+
+    self.fn = Fn
+
+  def __call__(self, x, w, b, last_relu=True):
+    return self.fn.apply(x, w, b, last_relu)
+
+
+def bf16_step_phase(torch, scene, card, config, compare_plain):
+  """11b for one config as shipped (bf16 MLPs, zip_lr_delay 0): s/step
+  over 3 steps after one warm-up, the launches of one step, its peak
+  memory and a profiled step; with compare_plain, one step against the
+  same weights and draws with K1's plain bf16 versions, beside the f32
+  step on them as a control."""
+  import dataclasses
+
+  from snerf_tpu_torch.models.zipnerf import ZipNerfModel
+  from snerf_tpu_torch.ops import fused_mlp as fm
+  from snerf_tpu_torch.train import zip_trainer as zt
+
+  zcfg, tcfg, zscene, dev_scene, state, step = zip_train_setup(
+      torch, scene, config=config, shipped_dtype=True)
+  model = state.model
+  log(f"[bf16 step] {config} as shipped but zip_lr_delay 0: batch "
+      f"{tcfg.batch_size}, MLPs {zcfg.compute_dtype}")
+  check(zcfg.compute_dtype == torch.bfloat16 and all(
+      m.compute_dtype == torch.bfloat16 for m in model.mlps()),
+        f"{config} does not train bf16 MLPs as shipped")
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  step(state, gen)
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _, counts = counted(lambda: step(state, gen))
+  torch.cuda.synchronize()
+  peak = torch.cuda.max_memory_allocated()
+  t0 = time.perf_counter()
+  losses = [float(step(state, gen)["loss"]) for _ in range(3)]
+  torch.cuda.synchronize()
+  secs = (time.perf_counter() - t0) / 3
+  log(f"  3 steps: {secs:.4f} s/step = {tcfg.batch_size / secs:.1f} rays/s; "
+      f"peak device memory of one step {peak / 2**30:.3f} GiB "
+      f"(torch.cuda.max_memory_allocated) | {card}")
+  log(f"  losses {losses}; launches of one step {counts}")
+  check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+  if config == TPU_CONFIG:
+    want = {k: counts[k] for k in TPU_BF16_STEP}
+    check(want == TPU_BF16_STEP, f"bf16 cp_hash K1 launches {want}, "
+          f"expected {TPU_BF16_STEP}")
+  else:
+    check(sum(counts[k] for k in K1_KERNELS + ("fused_mlp_fwd_bf16",)) == 0
+          and counts["hash_encode_fwd"] == ENCODE_PER_MLP,
+          f"the bf16 hash step's launches {counts}")
+  prof = (profile_cp_step(torch, lambda: step(state, gen), model)
+          if config == TPU_CONFIG else
+          profile_zip_step(torch, lambda: step(state, gen), model))
+  out = dict(counts=counts, peak=peak, secs=secs, prof=prof)
+  if not compare_plain:
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+  draws = zt.draw_zip_step(zcfg, tcfg, dev_scene["images"], zscene.i_train,
+                           gen)
+  weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+  got = step(state, draws)
+  sides = {}
+  for name, cfg, stack in (
+      ("plain bf16", zcfg, PlainBf16Stack(torch, fm)),
+      ("f32", dataclasses.replace(zcfg, compute_dtype=torch.float32),
+       fm.fused_mlp)):
+    torch.cuda.empty_cache()
+    m = ZipNerfModel(cfg, stack_fn=stack, device="cuda")
+    m.load_state_dict(weights)
+    st = zt.ZipTrainState(step=state.step - 1, model=m,
+                          optimizer=zt.make_zip_optimizer(m, tcfg))
+    if state.ema is not None:
+      st.ema = {k: v.detach().clone() for k, v in m.named_parameters()}
+    s_fn = zt.make_zip_train_step(m, tcfg, dev_scene, zscene.i_train,
+                                  zscene.near, zscene.far)
+    sides[name] = (m, s_fn(st, draws))
+  plain, want = sides["plain bf16"]
+  f32_model, f32_metrics = sides["f32"]
+  rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+  loss_err = rel(got["loss"], want["loss"])
+  loss_ctl = rel(f32_metrics["loss"], want["loss"])
+  errs = _grad_errs(torch, model, plain)
+  ctl = _grad_errs(torch, f32_model, plain)
+  trunk = sorted(k for k in errs
+                 if ".ipe_layers." in k or ".density_hidden." in k)
+
+  def trunk_err(a):
+    pa, pp = dict(a.named_parameters()), dict(plain.named_parameters())
+    got_ = torch.cat([pa[k].grad.double().flatten() for k in trunk])
+    want_ = torch.cat([pp[k].grad.double().flatten() for k in trunk])
+    return float((got_ - want_).norm() / want_.norm().clamp_min(1e-30))
+
+  trunk_sound, trunk_ctl = trunk_err(model), trunk_err(f32_model)
+  worst = max(errs.items(), key=lambda kv: kv[1][0])
+  log(f"  one bf16 step against K1's plain bf16 versions on the same "
+      f"weights and draws: loss rel err {loss_err:.2e} (f32 control "
+      f"{loss_ctl:.2e}, tol {BF16_STEP_LOSS_TOL}); the trunk's {len(trunk)} "
+      f"gradients together {trunk_sound:.2e} relative L2 (f32 control "
+      f"{trunk_ctl:.2e}, tol {BF16_STEP_TRUNK_TOL}); worst tensor "
+      f"{worst[1][0]:.2e} at {worst[0]}, median "
+      f"{sorted(v[0] for v in errs.values())[len(errs) // 2]:.2e} (tol "
+      f"{BF16_STEP_GRAD_TOL}); the control's median "
+      f"{sorted(v[0] for v in ctl.values())[len(ctl) // 2]:.2e}")
+  for n_, v in sorted(errs.items()):
+    log(f"    {n_}: {v[0]:.2e} (f32 control {ctl[n_][0]:.2e})")
+  check(loss_err <= BF16_STEP_LOSS_TOL < loss_ctl,
+        f"the bf16 step's loss against plain K1: {loss_err} (control "
+        f"{loss_ctl}, tol {BF16_STEP_LOSS_TOL})")
+  check(trunk_sound <= BF16_STEP_TRUNK_TOL < trunk_ctl,
+        f"the bf16 step's trunk grads against plain K1: {trunk_sound} "
+        f"(control {trunk_ctl}, tol {BF16_STEP_TRUNK_TOL})")
+  check(worst[1][0] <= BF16_STEP_GRAD_TOL,
+        f"the bf16 step's grads disagree with plain K1: {worst}")
+  out.update(loss_err=loss_err, loss_ctl=loss_ctl, worst=worst[1][0],
+             trunk=trunk_sound, trunk_ctl=trunk_ctl)
+  del model, state, step, sides, plain, f32_model, weights
+  torch.cuda.empty_cache()
+  return out
+
+
+def bench_phase(torch):
+  """11c: the bench line (snerf_tpu_torch.bench: bench.py's mip model in
+  bf16) in process; its JSON, and K1's launches a step."""
+  import contextlib
+  import io
+
+  from snerf_tpu_torch import bench
+
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    _, counts = counted(bench.main)
+  line = json.loads(buf.getvalue().strip().splitlines()[-1])
+  steps = 2 + bench.TIMED_STEPS
+  per_step = {k: v / steps for k, v in counts.items() if v}
+  log(f"[bench] {json.dumps(line)}; K1 launches a step {per_step}")
+  check(line["precision"] == "bf16" and math.isfinite(line["value"])
+        and line["value"] > 0, f"the bench line: {line}")
+  check(per_step.get("fused_mlp_fwd_bf16") == K1_FWD_PER_STEP
+        and per_step.get("fused_mlp_bwd_wgrad_bf16") == K1_BWD_PER_STEP
+        and per_step.get("fused_mlp_bwd_dgrad_bf16") == K1_BWD_PER_STEP
+        and "fused_mlp" not in per_step,
+        f"the bench step's K1 launches {per_step}")
+  return dict(line=line, per_step=per_step, counts=counts)
 
 
 def main() -> int:
@@ -3095,7 +3548,7 @@ def main() -> int:
   # 7a. K1's backward against plain, at the train path's shapes
   log("[kernel] fused_mlp backward (CUDA dgrad, wgrad, reduce) against "
       "fused_mlp_bwd_plain")
-  fine_rows = 4096 * 127   # the train step's fine level: 127 intervals
+  fine_rows = TRAIN_FINE_ROWS
   bcases = [
       ("fine trunk_1..4", fine_rows, 1024, 4, True, 2),
       ("fine trunk_6..7", fine_rows, 1024, 2, True, 2),
@@ -3226,6 +3679,17 @@ def main() -> int:
   phase_done("10b cp_hash fine level")
   tpu = tpu_cli_phase(torch, base, card)
   phase_done("10c cp_hash CLI")
+
+  # 11. the bf16 trunks: K1's bf16 kernels at the bf16 paths' shapes,
+  # one bf16 step of each shipped zip config, the bench line
+  bf16_k1 = bf16_shapes_phase(torch)
+  phase_done("11a K1 bf16 shapes")
+  bf16_steps = {config: bf16_step_phase(torch, scene, card, config,
+                                        compare_plain=config == TPU_CONFIG)
+                for config in ("waymo_zipnerf", TPU_CONFIG)}
+  phase_done("11b bf16 steps")
+  bench_line = bench_phase(torch)
+  phase_done("11c bench line")
   log(f"[phases] {' '.join(f'{k}: {v:.1f} s' for k, v in phase_secs.items())}"
       f"; total {sum(phase_secs.values()):.1f} s")
 
@@ -3364,8 +3828,9 @@ def main() -> int:
                         name=f"{name} (zip_hash, 2^19 rows)",
                         path="one zip_hash cell step (phase 9a)",
                         jax_source="snerf_tpu/models/hashgrid.py:116"))
-  # phase 10's shapes: K1 at the cp_hash trunks and the fused encode at
-  # the fine level, with the launches of 10c's training run
+  # phase 10's shapes: K1 at the cp_hash trunks with the launches of
+  # 10b's f32 step, the fused encode at the fine level with those of
+  # 10c's (bf16) training run
   d, n = 512, TPU_PROP_ROWS
   splits = fm.wgrad_splits(
       n, d, torch.cuda.get_device_properties(0).multi_processor_count)[1]
@@ -3380,18 +3845,19 @@ def main() -> int:
     kb[name]["bound_ms"], kb[name]["bound_by"] = bound_ms(nbytes, flops,
                                                           rate)
   tpu_path = "configs/waymo_zipnerf_tpu training, 12 steps (phase 10c)"
+  f32_path = "one f32 cp_hash step (phase 10b)"
   kernels.append(dict(entry(
       "fused_mlp", "fused_mlp.cu", "snerf_tpu/ops/pallas/fused_mlp.py:66",
-      tpu["train"]["fused_mlp"],
+      tpu_enc["counts"]["fused_mlp"],
       max(r["err"] for r in tpu_k1["fwd"].values()),
       tpu_k1["fwd"]["tpu proposal ipe_1..4"], library=False),
       name="fused_mlp (cp_hash proposal trunk, 2,097,152 x 512 x 4)",
-      path=tpu_path))
+      path=f32_path))
   kernels += [dict(entry(name, "fused_mlp.cu",
                          "snerf_tpu/ops/pallas/fused_mlp.py:104",
-                         tpu["train"][name], kb[name]["err"], kb[name]),
+                         tpu_enc["counts"][name], kb[name]["err"], kb[name]),
                    name=f"{name} (cp_hash proposal layer, 2,097,152 x 512)",
-                   path=tpu_path)
+                   path=f32_path)
               for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
                            "fused_mlp_bwd_reduce")]
   fine = tpu_enc["enc"]["cp_hash fine level, the step's positions and "
@@ -3408,6 +3874,34 @@ def main() -> int:
                         name=f"{name} (cp_hash fine level, L 1, 2^19 rows)",
                         path=tpu_path,
                         jax_source="snerf_tpu/models/hashgrid.py:116"))
+  # phase 11: K1's bf16 kernels, at the cp_hash trunks with the launches
+  # of one bf16 cp_hash step (11b), at bench.py's shapes with those of the
+  # bench line's run (11c, 32 steps)
+  cp_step = bf16_steps[TPU_CONFIG]["counts"]
+  for case, (path, counts) in (
+      ("bf16 cp_hash", ("one bf16 cp_hash step (phase 11b)", cp_step)),
+      ("bf16 bench", ("the bench line, 32 steps (phase 11c)",
+                      bench_line["counts"]))):
+    for cname, c_n, c_d, c_l in BF16_CASES:
+      if not cname.startswith(case):
+        continue
+      r = bf16_k1["cases"][cname]
+      kernels.append(dict(entry(
+          "fused_mlp_fwd_bf16", "fused_mlp.cu",
+          "snerf_tpu/ops/pallas/fused_mlp.py:66",
+          counts.get("fused_mlp_fwd_bf16", 0), r["fwd_err"], r,
+          library=False),
+          name=f"fused_mlp_fwd_bf16 ({cname[5:]}, {c_n:,} x {c_d} x {c_l})",
+          path=path))
+    for (c_n, c_d), alone in bf16_k1["alone"].items():
+      if ((c_n in (TPU_PROP_ROWS, TPU_NERF_ROWS))
+          == (case == "bf16 bench")):
+        continue
+      for name in ("fused_mlp_bwd_dgrad_bf16", "fused_mlp_bwd_wgrad_bf16"):
+        kernels.append(dict(entry(
+            name, "fused_mlp.cu", "snerf_tpu/ops/pallas/fused_mlp.py:104",
+            counts.get(name, 0), alone[name]["err"], alone[name]),
+            name=f"{name} ({case[5:]} layer, {c_n:,} x {c_d})", path=path))
   log(json.dumps({"kernels": kernels}))
   log(card)
   log(json.dumps({"ok": True, "device": {

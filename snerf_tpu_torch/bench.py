@@ -11,11 +11,12 @@ measurement of this card.
 The workload is bench.py's: the S-NeRF shipped nuScenes model (4,096
 rays a step, 128 + 128 samples, width 1024 with 3 rgb layers, cone rays,
 the fn2 warp with the log s->t map), proposal + rgb + depth losses and
-Adam, on the 96 x 128 synthetic scene. Where bench.py runs the trunk in
-bf16 inside a 15-step lax.scan, the port runs eager f32 steps, its
-trunk's products on K1 as 3xTF32 (bf16 under autograd is not ported:
-ROADMAP Queue 1, item 6). Two warm-up steps, then TIMED_STEPS steps on
-the host clock, ended by a synchronize. Runs on a CUDA card only.
+Adam, on the 96 x 128 synthetic scene, with the MLPs in bf16
+(compute_dtype bfloat16: the trunks on K1's bf16 kernels, the other
+layers on cuBLAS bf16, float32 heads), as bench.py trains it. Where
+bench.py runs 15 steps inside a lax.scan, the port runs eager steps. Two
+warm-up steps, then TIMED_STEPS steps on the host clock, ended by a
+synchronize. Runs on a CUDA card only.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def main():
   mcfg = MipNerfConfig(
       num_samples=128, num_fine=128, hidden_layer=1024, rgb_layer=3,
       proposal_hidden_layer=256, ray_shape="cone", no_warp_sample=False,
-      warp_fn=1, t_transform="log", density_noise=0.0)
+      warp_fn=1, t_transform="log", density_noise=0.0,
+      compute_dtype=torch.bfloat16)
   tcfg = TrainConfig(n_rgb=N_RGB, depth_loss=True, proposal_loss=True)
   model, pose_model, state = create_train_state(0, mcfg, tcfg,
                                                 scene.num_images,
@@ -70,7 +72,7 @@ def main():
       "value": round(N_RGB * TIMED_STEPS / dt, 1),
       "unit": "rays/s/chip",
       "vs_baseline": None,
-      "precision": "f32 3xTF32",
+      "precision": "bf16",
       "device": card,
   }))
 

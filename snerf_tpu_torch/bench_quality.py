@@ -15,7 +15,9 @@ Families (bench_quality.py's, at its widths and kwargs):
   mip       64 + 64 samples, width 512 (proposal 256), max_deg 16, depth
             loss on, lr 2e-3 -> 2e-4 without warm-up;
   zip_*     (32, 32) + 16 samples, sample_n 4, power transformation,
-            float32 MLPs (JAX's zip_compute_dtype float32), no EMA:
+            float32 MLPs, as JAX's cells train them (its
+            zip_compute_dtype float32; the shipped configs train
+            bf16), no EMA:
     zip_hash             10 hash levels of 2^19 rows, lr 8e-3 -> 8e-4;
     the rest at lr 2e-3 -> 2e-4 with the encoder tables at 4x:
     zip_ipe              the IPE to degree 12 into a 4 x 256 trunk;

@@ -17,12 +17,13 @@ resumed run continues but does not repeat an uninterrupted one. Every
 histograms of the pose rotations and the confidence lambdas; every
 `i_testset` it renders the first held-out view; every `i_weights` (and at
 the end) it saves a checkpoint, and the mip path also the pose stream.
-Products are float32 (TF32 off).
+Products are float32 (TF32 off), but the zip MLPs train in
+`--zip_compute_dtype`, bfloat16 by default as in train.py (the test-view
+render runs them in float32, as eval and render do).
 
 Raises where the port has no counterpart yet: `--unroll_steps > 1` (the
 scanned multi-step loop; a CUDA-graph loop is later work, ROADMAP Queue
-1, item 1), `--tp > 1` (F, Queue 1, item 9), a bf16 `--zip_compute_dtype`
-(B.2, Queue 1, item 6).
+1, item 1) and `--tp > 1` (F, Queue 1, item 9).
 """
 
 from __future__ import annotations

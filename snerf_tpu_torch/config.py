@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING
 
+import torch
+
 from snerf_tpu_torch.flags import Config, load_config  # noqa: F401 (re-export)
 from snerf_tpu_torch.models.mipnerf import MipNerfConfig
 from snerf_tpu_torch.models.zipnerf import ZipNerfConfig
@@ -24,7 +26,8 @@ _BF16_NAMES = ("bfloat16", "bf16")
 
 def model_config(cfg: Config) -> MipNerfConfig:
   """MipNerfConfig as `Config.model_config()` builds it (float32
-  activations). Flags the port does not support yet raise."""
+  activations: no flag sets the mip model's compute dtype). Flags the
+  port does not support yet raise."""
   if cfg.encode_appearance:
     raise NotImplementedError("encode_appearance is not ported yet")
   return MipNerfConfig(
@@ -76,12 +79,16 @@ def train_config(cfg: Config) -> TrainConfig:
 
 
 def zip_model_config(cfg: Config) -> ZipNerfConfig:
-  """ZipNerfConfig for the eval path, as `Config.zip_model_config()`
-  builds it (every zip_ipe_* and zip_cp_* flag), with float32 activations
-  whatever `zip_compute_dtype` says: render.py and eval.py force float32
-  there too. Training reads the flag in `zip_train_config`. The cp_tri
-  and mipcast encoders and a GLO embedding raise."""
+  """ZipNerfConfig as `Config.zip_model_config()` builds it (every
+  zip_ipe_* and zip_cp_* flag), its compute dtype picked from
+  `zip_compute_dtype` as JAX picks it: bfloat16 for "bfloat16" or "bf16"
+  (the default), float32 for anything else. The eval and render paths
+  run the MLPs in float32 whatever it says, as render.py and eval.py do
+  (`zipnerf.float32_forward`, applied by `make_zip_eval_render_fn`).
+  The cp_tri and mipcast encoders and a GLO embedding raise."""
+  bf16 = cfg.zip_compute_dtype in _BF16_NAMES
   return ZipNerfConfig(
+      compute_dtype=torch.bfloat16 if bf16 else torch.float32,
       num_prop_samples=tuple(cfg.zip_num_prop_samples),
       num_nerf_samples=cfg.zip_num_nerf_samples,
       num_levels=len(tuple(cfg.zip_num_prop_samples)) + 1,
@@ -136,18 +143,8 @@ def zip_train_config(cfg: Config) -> ZipTrainConfig:
   """ZipTrainConfig as `Config.zip_train_config()` builds it, with its
   encoder-aware lr rule: 0.01 is the hash-table schedule; for an encoder
   other than hash, flags left at their defaults become lr 0.002 -> 0.0002
-  and encoder_lr_mult 4.
-
-  The JAX trainer runs the zip MLPs in `zip_compute_dtype`, bfloat16 by
-  default ("bfloat16" or "bf16" select it, anything else float32); the
-  port trains them in float32 only, so a bf16 value raises until the
-  bf16 trunks (ROADMAP Queue 1, item 6, B.2) are ported: pass
-  `--zip_compute_dtype float32`."""
-  if cfg.zip_compute_dtype in _BF16_NAMES:
-    raise NotImplementedError(
-        f"zip_compute_dtype {cfg.zip_compute_dtype!r}: the port trains the "
-        "zip MLPs in float32 only until B.2 (bf16 trunks, ROADMAP Queue 1, "
-        "item 6) is ported; pass --zip_compute_dtype float32")
+  and encoder_lr_mult 4. The dtype the MLPs train in is the model
+  config's (`zip_model_config`), as in JAX."""
   from snerf_tpu_torch.train.zip_trainer import ZipTrainConfig
   lr_init, lr_final = cfg.zip_lr_init, cfg.zip_lr_final
   enc_mult = cfg.zip_encoder_lr_mult

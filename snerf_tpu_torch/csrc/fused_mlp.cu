@@ -6,8 +6,8 @@
 // for L layers,
 //   h = cast(act(h @ W[i] + b[i]))      W[i] laid out [in, out]
 // with f32 accumulation, act = relu except on the last layer when
-// last_relu == 0, and the cast to the storage type after EVERY layer, as
-// the TPU kernel does.
+// last_relu == 0, and the cast to the storage type (f32 or bf16) after
+// EVERY layer, as the TPU kernel does.
 //
 // What bounds it on this card: at the render path's shapes (N ~ 5e5
 // rows, D = 1024) each layer is ~1.1 TFLOP. On the SIMT FP32 pipes
@@ -16,8 +16,8 @@
 // f32 operands are split 3xTF32: x = big + small, both TF32, and
 // a*b ~ a_big*b_big + a_big*b_small + a_small*b_big (three MMAs; the
 // dropped term is ~2^-22 relative), 165 TFLOP/s of f32 work at the
-// card's 495 TFLOP/s of TF32. bf16 operands are exact in TF32 and take
-// one MMA. The tensor cores' f32 accumulation truncates, so an output
+// card's 495 TFLOP/s of TF32. bf16 operands take one bf16 MMA (below).
+// The tensor cores' f32 accumulation truncates, so an output
 // drifts ~3e-5 from an IEEE f32 sum at D = 1024, L = 4.
 //
 // f32 forward and dgrad (the hot path): warpgroup MMAs fed by TMA.
@@ -71,9 +71,45 @@
 //   (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so the
 //   library does not link libcuda) and passed as __grid_constant__.
 //
-// The bf16 forward keeps the first design: a 128-row band through all
-// layers, a 3-stage cp.async ring of 128 x 32 activation and 32 x 128
-// weight tiles, 8 warps of mma.sync m16n8k8 TF32, one MMA a product.
+// bf16 forward, dgrad and wgrad (the training path of the bf16 trunks):
+//   the same machinery on bf16 operands, which are exact products on the
+//   tensor cores, so one wgmma a product and no split: m64n256k16
+//   f32.bf16.bf16 in the SS form (both operands from shared memory), K
+//   in kQBK = 64 values (one 128-byte swizzle row) a stage, one producer
+//   warp issuing TMA loads and two consumer warpgroups of 64 rows, as
+//   above. The output tile is 128 x kQBN = 256 columns, 4 stages of 48
+//   KB: against 128-column tiles (6 stages of 32 KB) a block re-reads its
+//   A band from L2 half as often and each A fragment serves twice the
+//   columns; at 2,097,152 x 512 x 4 the forward went from 13.2 to 11.8 ms
+//   and no shape got slower (PERF.md). So D must be a multiple of 256 in
+//   bf16 (every bf16 trunk's is: 256, 512, 1024). For 16-bit types wgmma
+//   reads an operand K-major or MN-major (its transpose bit), so no
+//   operand is transposed anywhere:
+//   * forward: A = the band [N, in] K-major; B(k = in, n = out) = W[in]
+//     [out] as it lies, MN-major: 4 TMA boxes of [64 in rows, 64 out
+//     values] a stage. The band stays in the block through the
+//     layers and the keep/eval outputs land as in the f32 forward (bf16,
+//     one rounding a layer after the bias and ReLU in f32, as the Pallas
+//     kernel's epilogue).
+//   * dgrad: dz_{i-1} = bf16((dz_i W_i^T) * (act_i > 0)); B(k = out, n =
+//     in) = W[in][out] lies K-major, A = dz K-major.
+//   * wgrad: dW = act^T dz over a split of N: A(m, k) = act[k][m] and
+//     B(k, n) = dz[k][n] both MN-major, boxes of [64 rows, 64 values]; no
+//     shared-memory transpose. The f32 partial is added into every 2,048
+//     rows, the fixed-order reduce below sums the partials, and the
+//     wrapper rounds dW and db to bf16 once. db: the blocks of the first
+//     tile row sum their dz columns from the stage in shared memory while
+//     the wgmmas run. The caller splits N into runs of ~2,048 rows (64
+//     waves of blocks): longer splits ran slower (PERF.md).
+//   What bounds them: at the zip trunks' shapes (2,097,152 x 512) the
+//   forward's 4 layers are 4.4 TFLOP, 4.45 ms at 989 TFLOP/s; dgrad
+//   moves dz, the mask and its output (6.4 GB, 1.92 ms at 3.35 TB/s)
+//   above its 1.1 ms of products. These first kernels reach ~35-50% of
+//   that, and one layer's mainloop takes ~1.75x the bf16 cuBLAS GEMM of
+//   the same shape (PERF.md, probes/k1_bf16.py); dgrad's mask read in
+//   the unoverlapped epilogue adds ~17%. Tried and slower: two-CTA
+//   clusters sharing W by TMA multicast, a persistent grid, and an L2
+//   prefetch of the mask.
 //
 // Backward, per layer i from the last (act_0 = x, act_{i+1} = layer i's
 // output, dz_i = dL/d(pre-activation of layer i), all f32):
@@ -124,48 +160,13 @@
 
 namespace {
 
-constexpr int kBM = 128;     // rows per block (the band)
-constexpr int kBN = 128;     // columns per output tile
-constexpr int kBK = 32;      // k-depth of one pipeline stage
-constexpr int kStages = 3;
-constexpr int kThreads = 256;          // 8 warps: 4 along M x 2 along N
-constexpr int kWM = 32, kWN = 64;      // warp tile
-constexpr int kMT = kWM / 16;          // m16 MMA tiles per warp
-constexpr int kNT = kWN / 8;           // n8 MMA tiles per warp
-
 using bf16 = __nv_bfloat16;
-
-// The bf16 forward's stages: activation rows padded so the fragment reads
-// are bank-conflict free.
-struct Bf16Smem {
-  static constexpr int kChunk = 8;                    // elements per cp.async
-  static constexpr int kAStride = kBK + kChunk;       // padded row, elements
-  static constexpr int kBStride = kBN + 8;
-  static constexpr int kAStage = kBM * kAStride;
-  static constexpr int kBStage = kBK * kBStride;
-  static constexpr size_t kBytes =
-      (size_t)kStages * (kAStage + kBStage) * sizeof(bf16);
-};
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -179,155 +180,6 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
   big = to_tf32(x);
   small = to_tf32(x - __uint_as_float(big));
 }
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ------------------------------------------------------- bf16 forward
-// Stage rows row0.. / cols k0.. of the band, and rows k0.. / cols c0.. of
-// the weights, into one pipeline stage. Rows past n are zero-filled.
-__device__ __forceinline__ void load_stage(bf16* As, bf16* Bs,
-                                           const bf16* __restrict__ in,
-                                           const bf16* __restrict__ wl,
-                                           int n, int d, long long row0,
-                                           int k0, int c0) {
-  using S = Bf16Smem;
-  constexpr int kC = S::kChunk;
-#pragma unroll
-  for (int i = 0; i < kBM * kBK / kC / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int r = e / (kBK / kC);
-    const int c = (e - r * (kBK / kC)) * kC;
-    const bool valid = row0 + r < n;
-    const bf16* src = in + (valid ? (row0 + r) * d + k0 + c : 0);
-    cp_async16(As + r * S::kAStride + c, src, valid);
-  }
-#pragma unroll
-  for (int i = 0; i < kBK * kBN / kC / kThreads; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    const int kr = e / (kBN / kC);
-    const int c = (e - kr * (kBN / kC)) * kC;
-    cp_async16(Bs + kr * S::kBStride + c,
-               wl + (long long)(k0 + kr) * d + c0 + c, true);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-fused_mlp_fwd_bf16_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ w,
-                          const bf16* __restrict__ b, bf16* out, bf16* tmp,
-                          int n, int d, int n_layers, int last_relu) {
-  using S = Bf16Smem;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kStages * S::kAStage;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;  // warp grid 4 x 2
-  const int g = lane / 4, t = lane % 4;    // MMA fragment coordinates
-  const long long row0 = (long long)blockIdx.x * kBM;
-  const int ktiles = d / kBK;
-
-  const bf16* in = x;
-  for (int layer = 0; layer < n_layers; ++layer) {
-    const bf16* wl = w + (long long)layer * d * d;
-    const bf16* bl = b + (long long)layer * d;
-    const bool relu = layer < n_layers - 1 || last_relu;
-    // The last layer lands in out; earlier ones alternate backwards
-    // between out and tmp.
-    bf16* dst = ((n_layers - 1 - layer) % 2 == 0) ? out : tmp;
-    for (int c0 = 0; c0 < d; c0 += kBN) {
-      float acc[kMT][kNT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-      for (int s = 0; s < kStages - 1; ++s) {
-        if (s < ktiles)
-          load_stage(As + s * S::kAStage, Bs + s * S::kBStage, in, wl, n, d,
-                     row0, s * kBK, c0);
-        cp_async_commit();
-      }
-      for (int kt = 0; kt < ktiles; ++kt) {
-        cp_async_wait<kStages - 2>();  // stage kt has landed
-        __syncthreads();               // ... and stage kt - 1 is free
-        const int nk = kt + kStages - 1;
-        if (nk < ktiles) {
-          const int s = nk % kStages;
-          load_stage(As + s * S::kAStage, Bs + s * S::kBStage, in, wl, n, d,
-                     row0, nk * kBK, c0);
-        }
-        cp_async_commit();
-        const bf16* A = As + (kt % kStages) * S::kAStage;
-        const bf16* B = Bs + (kt % kStages) * S::kBStage;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 8) {
-          // A fragment (16 x 8, row-major): rows g, g+8; cols t, t+4. A
-          // bf16 value is exact in TF32: one MMA a product.
-          uint32_t a[kMT][4];
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            const bf16* ap =
-                A + (wm * kWM + mt * 16 + g) * S::kAStride + kk + t;
-            a[mt][0] = __float_as_uint(__bfloat162float(ap[0]));
-            a[mt][1] = __float_as_uint(__bfloat162float(ap[8 * S::kAStride]));
-            a[mt][2] = __float_as_uint(__bfloat162float(ap[4]));
-            a[mt][3] =
-                __float_as_uint(__bfloat162float(ap[8 * S::kAStride + 4]));
-          }
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            // B fragment (8 x 8, col-major): rows t, t+4; col g.
-            const bf16* bp =
-                B + (kk + t) * S::kBStride + wn * kWN + nt * 8 + g;
-            const uint32_t b0 = __float_as_uint(__bfloat162float(bp[0]));
-            const uint32_t b1 =
-                __float_as_uint(__bfloat162float(bp[4 * S::kBStride]));
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) mma(acc[mt][nt], a[mt], b0, b1);
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // every warp is done with the stages
-
-      // Epilogue. Accumulator fragment: rows g, g+8; cols 2t, 2t+1.
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int col = c0 + wn * kWN + nt * 8 + 2 * t;
-        const float bias0 = __bfloat162float(bl[col]);
-        const float bias1 = __bfloat162float(bl[col + 1]);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const long long row = row0 + wm * kWM + mt * 16 + g + 8 * h;
-            float v0 = acc[mt][nt][2 * h] + bias0;
-            float v1 = acc[mt][nt][2 * h + 1] + bias1;
-            if (relu) {
-              v0 = fmaxf(v0, 0.f);
-              v1 = fmaxf(v1, 0.f);
-            }
-            if (row < n) store2(dst + row * d + col, v0, v1);
-          }
-        }
-      }
-    }
-    __threadfence_block();
-    __syncthreads();  // this layer's band is written before the next reads
-    in = dst;
-  }
-}
-
 // -------------------------------------------- f32 forward and dgrad (wgmma)
 constexpr int kHBM = 128;     // rows per block: two consumer warpgroups
 constexpr int kHBN = 128;     // columns per output tile (the wgmma's n)
@@ -722,20 +574,24 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A map over `slabs` row-major [rows, d] f32 slabs at ptr, boxes of
-// [box_rows, kHBK floats] with the 128-byte swizzle; rows past `rows` of a
-// slab read as zeros.
+// A map over `slabs` row-major [rows, d] f32 (or bf16) slabs at ptr, boxes
+// of [box_rows, 128 bytes] (kHBK floats or kQBK bf16 values) with the
+// 128-byte swizzle; rows past `rows` of a slab read as zeros.
 cudaError_t encode(CUtensorMap* map, const void* ptr, int d, long long rows,
-                   int slabs, int box_rows = kHBM) {
+                   int slabs, int box_rows = kHBM, bool is_bf16 = false) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t elem_bytes = is_bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
-                                 (cuuint64_t)d * 4 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {kHBK, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem_bytes,
+                                 (cuuint64_t)d * elem_bytes * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+  const CUresult r = fn(map,
+                        is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1032,10 +888,402 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part_w,
   }
 }
 
+// ------------------------------------------------ bf16 (wgmma, SS form)
+// See the note at the top. A stage: a [128, kQBK] A tile (16 KB), then the
+// B tile of kQBN columns (K-major [kQBN, kQBK], or 4 MN-major [kQBK, 64]
+// boxes, 32 KB).
+constexpr int kQBK = 64;                       // bf16 k-depth of a stage
+constexpr int kQBN = 256;                      // columns of an output tile
+constexpr uint32_t kQTileA = 128 * kQBK * 2;   // 16 KB
+constexpr uint32_t kQBox = 64 * kQBK * 2;      // one [64, 64] box: 8 KB
+constexpr int kQBoxElems = kQBox / 2;
+constexpr uint32_t kQStageBytes = kQTileA + kQBN * kQBK * 2;
+constexpr int kQStages = 4;
+constexpr size_t kQSmem = (size_t)kQStages * kQStageBytes +
+                          2 * kQStages * sizeof(uint64_t) + 1024;
+constexpr int kQPromoteStages = 2048 / kQBK;   // wgrad: partial every 2,048
+static_assert(kQSmem <= 232448, "the bf16 stages exceed 227 KB");
+
+struct QRing {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ bf16* a(int s) const {
+    return reinterpret_cast<bf16*>(base + s * kQStageBytes);
+  }
+  __device__ bf16* b(int s) const {
+    return reinterpret_cast<bf16*>(base + s * kQStageBytes + kQTileA);
+  }
+};
+
+__device__ __forceinline__ QRing qring_init(unsigned char* raw) {
+  QRing ring;
+  ring.base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  ring.full = reinterpret_cast<uint64_t*>(ring.base + kQStages * kQStageBytes);
+  ring.empty = ring.full + kQStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// The descriptor of an MN-major bf16 operand as TMA writes it: [kQBK k
+// rows, 64 values] boxes with the 128-byte swizzle, 8-row k groups 1024
+// bytes apart (SBO) and each next 64 values of MN one box (8 KB) on
+// (LBO). +128 per 16-deep k step (16 rows, 2 KB). smem_desc above
+// describes a K-major tile of bf16 as of f32 (+2 per k step, 32 bytes).
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* tile) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(kQBox >> 4) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
+}
+// d (a 64 x 256 f32 tile, 128 a thread) += A (64 x 16 bf16) B (16 x 256
+// bf16), both from shared memory; kTransA / kTransB: the operand is
+// MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kQBN / 2],
+                                           uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// One landed stage of a consumer warpgroup: its four 16-deep wgmmas as one
+// group, then retire the previous stage's group and hand that stage back
+// to the producer (not when `first`: no previous stage of this tile).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void qstage(const QRing& ring,
+                                       float (&acc)[kQBN / 2], int it,
+                                       uint64_t da, uint64_t db, bool first,
+                                       int lane) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_bf16<kTransA, kTransB>(acc, da + (kTransA ? 128 : 2) * j,
+                                 db + (kTransB ? 128 : 2) * j);
+  wgmma_commit();
+  fence_regs(acc);
+  wgmma_wait<1>();
+  if (!first && lane == 0)
+    mbar_arrive(&ring.empty[(it + kQStages - 1) % kQStages]);
+}
+// After a tile's last stage (it already past it): retire it, hand it back.
+__device__ __forceinline__ void qdrain(const QRing& ring,
+                                       float (&acc)[kQBN / 2], int it,
+                                       int lane) {
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0) mbar_arrive(&ring.empty[(it + kQStages - 1) % kQStages]);
+}
+
+// bf16 forward (kDgrad false) or dgrad (kDgrad true) on a 128-row band in
+// output tiles of kQBN columns, the f32 kernel's schedule: tm_x = x
+// (dgrad: dz), tm_out / tm_tmp / tm_saved the forward's layer outputs
+// read back, tm_w the weights [L, in, out] (dgrad: the layer's W, one
+// slab); vec = the biases [L, d] (dgrad: the mask, or null).
+template <bool kDgrad>
+__global__ void __launch_bounds__(kHThreads, 1)
+k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_out,
+               const __grid_constant__ CUtensorMap tm_tmp,
+               const __grid_constant__ CUtensorMap tm_saved,
+               const __grid_constant__ CUtensorMap tm_w,
+               const bf16* __restrict__ vec, bf16* out, bf16* tmp,
+               bf16* saved, int n, int d, int n_layers, int last_relu) {
+  extern __shared__ unsigned char smem_raw[];
+  const QRing ring = qring_init(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int row0 = blockIdx.x * kHBM;
+  const int ktiles = d / kQBK;
+  const bool keep = saved != nullptr;
+
+  if (wg == 2) {
+    // ---- producer: one warp, lane 0 issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 8) return;
+    int it = 0;
+    for (int layer = 0; layer < n_layers; ++layer) {
+      const CUtensorMap* tin = &tm_x;
+      int slab = 0;
+      if (layer > 0) {
+        named_barrier_sync(kLayerBarrier, 2 * 128 + kProducerThreads);
+        fence_proxy_async_global();
+        const int k = dst_kind(layer - 1, n_layers, keep);
+        tin = k == 0 ? &tm_out : k == 1 ? &tm_tmp : &tm_saved;
+        slab = k == 2 ? layer - 1 : 0;
+      }
+      for (int c0 = 0; c0 < d; c0 += kQBN) {
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kQStages;
+          mbar_wait(&ring.empty[s], ((it / kQStages) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(&ring.full[s], kQStageBytes);
+            tma_load(ring.a(s), tin, &ring.full[s], kt * kQBK, row0, slab);
+            if (kDgrad) {
+              tma_load(ring.b(s), &tm_w, &ring.full[s], kt * kQBK, c0, 0);
+            } else {
+#pragma unroll
+              for (int q = 0; q < kQBN / 64; ++q)
+                tma_load(ring.b(s) + q * kQBoxElems, &tm_w, &ring.full[s],
+                         c0 + 64 * q, kt * kQBK, layer);
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = wg * 64 + (warp % 4) * 16 + g;  // row in the band
+    float acc[kQBN / 2];
+    int it = 0;
+    for (int layer = 0; layer < n_layers; ++layer) {
+      const bool relu = layer < n_layers - 1 || last_relu;
+      const int k = dst_kind(layer, n_layers, keep);
+      bf16* dst = kDgrad ? out
+                  : k == 0 ? out
+                  : k == 1 ? tmp
+                           : saved + (long long)layer * n * d;
+      for (int c0 = 0; c0 < d; c0 += kQBN) {
+#pragma unroll
+        for (int i = 0; i < kQBN / 2; ++i) acc[i] = 0.f;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kQStages;
+          mbar_wait(&ring.full[s], (it / kQStages) & 1);
+          const uint64_t da = smem_desc(ring.a(s) + wg * 64 * kQBK);
+          const uint64_t db =
+              kDgrad ? smem_desc(ring.b(s)) : smem_desc_mn(ring.b(s));
+          qstage<0, (kDgrad ? 0 : 1)>(ring, acc, it, da, db, kt == 0, lane);
+        }
+        qdrain(ring, acc, it, lane);
+
+        // Epilogue. Accumulator fragment of n8 block j: rows r, r + 8;
+        // cols 8j + 2t, 8j + 2t + 1 (d[4j + 2h + e]).
+#pragma unroll
+        for (int j = 0; j < kQBN / 8; ++j) {
+          const int col = c0 + 8 * j + 2 * t;
+          float2 bias = make_float2(0.f, 0.f);
+          if (!kDgrad)
+            bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                vec + (long long)layer * d + col));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long row = (long long)row0 + r_lo + 8 * h;
+            if (row >= n) continue;
+            float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (kDgrad) {
+              if (vec != nullptr) {
+                const float2 m = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(vec + row * d +
+                                                             col));
+                v0 *= m.x > 0.f ? 1.f : 0.f;
+                v1 *= m.y > 0.f ? 1.f : 0.f;
+              }
+            } else {
+              v0 += bias.x;
+              v1 += bias.y;
+              if (relu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+            }
+            store2(dst + row * d + col, v0, v1);
+          }
+        }
+      }
+      if (layer < n_layers - 1) {
+        fence_proxy_async_global();
+        named_barrier_sync(kLayerBarrier, 2 * 128 + kProducerThreads);
+      }
+    }
+  }
+}
+
+// bf16 wgrad: split z of N (rows [z rows_per_split, + rows_per_split) of
+// act and dz): part_w[z] (+)= act^T dz on the block's 128 x kQBN tile (rows
+// m0.. of act's columns, columns n0.. of dz's) and, from the blocks of the
+// first tile row, part_b[z][c] = the sum of dz[k][c], in f32.
+__global__ void __launch_bounds__(kHThreads, 1)
+k1_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
+                     const __grid_constant__ CUtensorMap tm_dz, float* part_w,
+                     float* part_b, int n, int d, int rows_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  const QRing ring = qring_init(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int n0 = blockIdx.x * kQBN, m0 = blockIdx.y * kHBM;
+  const long long k_begin = (long long)blockIdx.z * rows_per_split;
+  const long long k_end = k_begin + rows_per_split < n
+                              ? k_begin + rows_per_split : (long long)n;
+  const int stages = (int)((k_end - k_begin + kQBK - 1) / kQBK);
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 8) return;
+    for (int p = 0; p < stages; ++p) {
+      const int s = p % kQStages;
+      mbar_wait(&ring.empty[s], ((p / kQStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&ring.full[s], kQStageBytes);
+        const int k0 = (int)(k_begin + (long long)p * kQBK);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          tma_load(ring.a(s) + q * kQBoxElems, &tm_act, &ring.full[s],
+                   m0 + 64 * q, k0, 0);
+#pragma unroll
+        for (int q = 0; q < kQBN / 64; ++q)
+          tma_load(ring.b(s) + q * kQBoxElems, &tm_dz, &ring.full[s],
+                   n0 + 64 * q, k0, 0);
+      }
+      __syncwarp();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int g = lane / 4, t = lane % 4;
+    const int r_lo = wg * 64 + (warp % 4) * 16 + g;
+    // db: consumer thread c sums dz column c of the tile over each stage's
+    // rows; (k, c) of the MN-major dz boxes sits at box c / 64, row k,
+    // 16-byte chunk ((c % 64) / 8) ^ (k % 8)
+    static_assert(kQBN == 256, "one consumer thread a column");
+    const int c = threadIdx.x, cc = c & 63;
+    const bool db_block = blockIdx.y == 0;
+    float* pw = part_w + (long long)blockIdx.z * d * d;
+    float acc[kQBN / 2];
+    float col = 0.f;
+    int it = 0;
+    for (int c0 = 0; c0 < stages; c0 += kQPromoteStages) {
+      const int nst = min(kQPromoteStages, stages - c0);
+#pragma unroll
+      for (int i = 0; i < kQBN / 2; ++i) acc[i] = 0.f;
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kQStages;
+        mbar_wait(&ring.full[s], (it / kQStages) & 1);
+        if (db_block) {
+          const bf16* B = ring.b(s) + (c >> 6) * kQBoxElems;
+#pragma unroll 8
+          for (int k = 0; k < kQBK; ++k) {
+            col += __bfloat162float(
+                B[k * 64 + ((((cc >> 3) ^ (k & 7)) << 3) | (cc & 7))]);
+          }
+        }
+        const uint64_t da = smem_desc_mn(ring.a(s) + wg * kQBoxElems);
+        const uint64_t db = smem_desc_mn(ring.b(s));
+        qstage<1, 1>(ring, acc, it, da, db, st == 0, lane);
+      }
+      qdrain(ring, acc, it, lane);
+      // the partial (+)= this run's sum, in run order
+#pragma unroll
+      for (int j = 0; j < kQBN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* p = reinterpret_cast<float2*>(
+              pw + (long long)(m0 + r_lo + 8 * h) * d + n0 + 8 * j + 2 * t);
+          float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if (c0 > 0) {
+            const float2 o = *p;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *p = v;
+        }
+      }
+    }
+    if (db_block) part_b[(long long)blockIdx.z * d + n0 + c] = col;
+  }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <bool kDgrad>
+int launch_bf16(const void* in, const void* w, const void* vec, void* out,
+                void* tmp, void* saved, int n, int d, int n_layers,
+                int last_relu, cudaStream_t stream) {
+  if (n <= 0 || d <= 0 || d % kQBN != 0 || n_layers <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (!kDgrad && n_layers > 1 && tmp == nullptr && saved == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm[5] = {};
+  cudaError_t err = encode(&tm[0], in, d, n, 1, kHBM, true);
+  if (!kDgrad) {
+    if (err == cudaSuccess) err = encode(&tm[1], out, d, n, 1, kHBM, true);
+    if (err == cudaSuccess)
+      err = encode(&tm[2], tmp != nullptr ? tmp : out, d, n, 1, kHBM, true);
+    if (err == cudaSuccess)
+      err = encode(&tm[3], saved != nullptr ? saved : out, d, n,
+                   saved != nullptr ? n_layers - 1 : 1, kHBM, true);
+  }
+  // W [L, in, out]: the forward's MN-major boxes are [64 in, 64 out], the
+  // dgrad's K-major tile [kQBN in, 64 out]
+  if (err == cudaSuccess)
+    err = encode(&tm[4], w, d, d, kDgrad ? 1 : n_layers,
+                 kDgrad ? kQBN : kQBK, true);
+  if (err == cudaSuccess) err = set_smem(k1_bf16_kernel<kDgrad>, kQSmem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n + kHBM - 1) / kHBM);
+  k1_bf16_kernel<kDgrad><<<grid, kHThreads, kQSmem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<const bf16*>(vec),
+      static_cast<bf16*>(out), static_cast<bf16*>(tmp),
+      static_cast<bf16*>(saved), n, d, n_layers, last_relu);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1064,25 +1312,18 @@ int snerf_fused_mlp_fwd_f32(const void* x, const void* w_big_t,
                              static_cast<cudaStream_t>(stream));
 }
 
-// bf16 forward: x [n, d], w [n_layers, d, d] ([in, out]), b [n_layers, d],
-// out [n, d], tmp [n, d] when n_layers > 1.
+// bf16 forward: x [n, d], w [n_layers, d, d] ([in, out]), b [n_layers,
+// d]; out [n, d] and, when n_layers > 1, either tmp [n, d] or saved
+// [n_layers - 1, n, d] (every layer's output but the last), as the f32
+// forward takes them.
 int snerf_fused_mlp_fwd_bf16(const void* x, const void* w, const void* b,
-                             void* out, void* tmp, int n, int d,
+                             void* out, void* tmp, void* saved, int n, int d,
                              int n_layers, int last_relu, int device,
                              void* stream) {
-  if (d <= 0 || d % kBN != 0) return (int)cudaErrorInvalidValue;
-  if (n_layers > 1 && tmp == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = set_smem(fused_mlp_fwd_bf16_kernel, Bf16Smem::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((n + kBM - 1) / kBM);
-  fused_mlp_fwd_bf16_kernel<<<grid, kThreads, Bf16Smem::kBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b), static_cast<bf16*>(out),
-      static_cast<bf16*>(tmp), n, d, n_layers, last_relu);
-  return (int)cudaGetLastError();
+  return launch_bf16<false>(x, w, b, out, tmp, saved, n, d, n_layers,
+                            last_relu, static_cast<cudaStream_t>(stream));
 }
 
 // The 3xTF32 split of w [n_layers, d, d] (d a multiple of 32): big_t,
@@ -1105,7 +1346,7 @@ int snerf_tf32_split(const void* w, void* big, void* small, void* big_t,
   return (int)cudaGetLastError();
 }
 
-// The backward's three kernels, float32 only.
+// The f32 backward's three kernels.
 //
 // dgrad: out [n, d] = (dz [n, d] W^T) * (mask [n, d] > 0), W [d, d]
 // ([in, out]) given as its split w_big, w_small (snerf_tf32_split, not
@@ -1157,6 +1398,45 @@ int snerf_fused_mlp_bwd_reduce(const void* part_w, const void* part_b,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_w), static_cast<const float*>(part_b),
       static_cast<float*>(dw), static_cast<float*>(db), d, splits);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 backward (wgmma on bf16 operands, no split).
+//
+// dgrad: out [n, d] = bf16((dz [n, d] W^T) * (mask [n, d] > 0)), W [d, d]
+// ([in, out]) bf16; mask may be null. out distinct from dz.
+int snerf_fused_mlp_bwd_dgrad_bf16(const void* dz, const void* w,
+                                   const void* mask, void* out, int n, int d,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return launch_bf16<true>(dz, w, mask, out, nullptr, nullptr, n, d, 1, 0,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// wgrad: the f32 partials of dW = act^T dz and db = colsum(dz) over
+// `splits` runs of rows_per_split rows (a multiple of 64): act, dz [n, d]
+// bf16; part_w [splits, d, d] and part_b [splits, d] f32, summed by
+// snerf_fused_mlp_bwd_reduce.
+int snerf_fused_mlp_bwd_wgrad_bf16(const void* act, const void* dz,
+                                   void* part_w, void* part_b, int n, int d,
+                                   int rows_per_split, int splits, int device,
+                                   void* stream) {
+  if (d <= 0 || d % kQBN != 0 || n <= 0 || rows_per_split <= 0 ||
+      rows_per_split % kQBK != 0 || splits <= 0 || splits > 65535 ||
+      (long long)splits * rows_per_split < n)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  CUtensorMap tm[2] = {};
+  if (err == cudaSuccess) err = encode(&tm[0], act, d, n, 1, kQBK, true);
+  if (err == cudaSuccess) err = encode(&tm[1], dz, d, n, 1, kQBK, true);
+  if (err == cudaSuccess) err = set_smem(k1_bf16_wgrad_kernel, kQSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(d / kQBN, d / kHBM, splits);
+  k1_bf16_wgrad_kernel<<<grid, kHThreads, kQSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      tm[0], tm[1], static_cast<float*>(part_w), static_cast<float*>(part_b),
+      n, d, rows_per_split);
   return (int)cudaGetLastError();
 }
 

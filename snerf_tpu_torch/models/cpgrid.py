@@ -7,7 +7,10 @@ interpolation weights w_a = exp(-(u - i)^2 / (2 (sigma_b^2 + s_a^2)))
 normalised over the nodes i, and the level's feature is the rank-F CP
 product prod_a (w_a @ V_a^l). Both directions are [rows, R] x [R, F]
 matmuls over the dense profile (cuBLAS; the JAX module runs them in XLA
-outside any Pallas kernel), no gather and no scatter.
+outside any Pallas kernel), no gather and no scatter. In a bf16 compute
+dtype the profile is built in float32 and cast, and both matmuls, the
+products, the level window and the features are bf16, as the JAX
+module's `compute_dtype` makes them.
 
 The profile is [rows, R]: at a proposal MLP's 2,097,152 rows and R =
 1,024 it is 8.6 GB an axis, so each level is encoded in chunks of rows
@@ -65,15 +68,19 @@ def _bounded(v: torch.Tensor, bound: float) -> torch.Tensor:
   return 1.0 + bound * torch.tanh(v / bound)
 
 
-def level_encode_rows(u, var, v, p, r: int, bound: float) -> torch.Tensor:
+def level_encode_rows(u, var, v, p, r: int, bound: float,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
   """One level's integrated-CP features of rows u, var [M, n, 3] (grid
   coordinates and per-axis variances in grid^2 units): the mean over the
   n mixture components of prod_a (w_a @ V_a), with the pair products
   (w_a @ P_a) * (w_b @ P_b) appended when p [3, R, F2] is given. The JAX
-  module's `_level_encode`, op for op."""
+  module's `_level_encode`, op for op: the profile w in float32, then
+  w and the (bounded) tables cast to dtype for the matmuls, and the
+  products in dtype."""
   iota = torch.arange(r, dtype=torch.float32, device=u.device)
-  vb = [_bounded(v[a], bound) for a in range(3)]
-  pb = None if p is None else [_bounded(p[a], bound) for a in range(3)]
+  vb = [_bounded(v[a], bound).to(dtype) for a in range(3)]
+  pb = (None if p is None
+        else [_bounded(p[a], bound).to(dtype) for a in range(3)])
   acc = 0.0
   n = u.shape[-2]
   for k in range(n):
@@ -82,7 +89,7 @@ def level_encode_rows(u, var, v, p, r: int, bound: float) -> torch.Tensor:
     for a in range(3):
       d = u[:, k, a, None] - iota                          # [M, R]
       w = torch.exp(-0.5 * d * d / var[:, k, a, None])
-      w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-12)
+      w = (w / (torch.sum(w, dim=-1, keepdim=True) + 1e-12)).to(dtype)
       f = f * (w @ vb[a])                                  # [M, F]
       if pb is not None:
         pf.append(w @ pb[a])
@@ -102,10 +109,10 @@ class _LevelEncode(torch.autograd.Function):
   under autograd and takes its gradients."""
 
   @staticmethod
-  def forward(ctx, u, var, v, p, r, bound):
-    ctx.r, ctx.bound = r, bound
+  def forward(ctx, u, var, v, p, r, bound, dtype):
+    ctx.r, ctx.bound, ctx.dtype = r, bound, dtype
     ctx.save_for_backward(u, var, v, p)
-    return _encode_chunked(u, var, v, p, r, bound)
+    return _encode_chunked(u, var, v, p, r, bound, dtype)
 
   @staticmethod
   def backward(ctx, g):
@@ -124,7 +131,8 @@ class _LevelEncode(torch.autograd.Function):
       wrt = [t for t, want in ((u_c, need[0]), (var_c, need[1]), (v_, need[2]),
                                (p_, p is not None and need[3])) if want]
       with torch.enable_grad():
-        f = level_encode_rows(u_c, var_c, v_, p_, ctx.r, ctx.bound)
+        f = level_encode_rows(u_c, var_c, v_, p_, ctx.r, ctx.bound,
+                              ctx.dtype)
         grads = list(torch.autograd.grad(f, wrt, g[s:s + step]))
       if need[0]:
         du[s:s + step] = grads.pop(0)
@@ -134,24 +142,25 @@ class _LevelEncode(torch.autograd.Function):
         dv += grads.pop(0)
       if dp is not None:
         dp += grads.pop(0)
-    return du, dvar, dv, dp, None, None
+    return du, dvar, dv, dp, None, None, None
 
 
-def _encode_chunked(u, var, v, p, r, bound):
+def _encode_chunked(u, var, v, p, r, bound, dtype):
   step = _chunk_rows(r)
   with torch.no_grad():
     return torch.cat([level_encode_rows(u[s:s + step], var[s:s + step], v, p,
-                                        r, bound)
+                                        r, bound, dtype)
                       for s in range(0, u.shape[0], step)], dim=0)
 
 
-def level_encode(u, var, v, p, r: int, bound: float) -> torch.Tensor:
-  """`level_encode_rows` of u, var [M, n, 3], chunked by rows and
-  checkpointed when autograd needs it."""
+def level_encode(u, var, v, p, r: int, bound: float,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+  """`level_encode_rows` of u, var [M, n, 3] in dtype, chunked by rows
+  and checkpointed when autograd needs it."""
   if torch.is_grad_enabled() and any(
       t is not None and t.requires_grad for t in (u, var, v, p)):
-    return _LevelEncode.apply(u, var, v, p, r, bound)
-  return _encode_chunked(u, var, v, p, r, bound)
+    return _LevelEncode.apply(u, var, v, p, r, bound, dtype)
+  return _encode_chunked(u, var, v, p, r, bound, dtype)
 
 
 class CPEncoding(nn.Module):
@@ -217,10 +226,12 @@ class CPEncoding(nn.Module):
 
   def forward(self, x01: torch.Tensor, std01: torch.Tensor,
               level_window: Optional[torch.Tensor] = None,
-              collapse: bool = False) -> torch.Tensor:
+              collapse: bool = False,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """collapse=True moment-matches the n multisamples into one per-axis
     Gaussian (mean of means; variance = mean within-sample variance +
-    spread of the means) before encoding."""
+    spread of the means) before encoding. dtype: the compute dtype of the
+    matmuls and of the features returned."""
     if std01.dim() == x01.dim() - 1:
       std01 = std01[..., None].expand(x01.shape)
     if collapse and x01.shape[-2] > 1:
@@ -237,14 +248,15 @@ class CPEncoding(nn.Module):
       var = sig * sig + self.bump_width ** 2
       p = getattr(self, f"p{l}") if self.pair_dim > 0 else None
       feat = level_encode(u.reshape(-1, n, 3), var.reshape(-1, n, 3),
-                          getattr(self, f"v{l}"), p, r, self.factor_bound)
+                          getattr(self, f"v{l}"), p, r, self.factor_bound,
+                          dtype)
       feat = feat.reshape(*lead, -1)
       if self.feature_center:
         feat = feat - 1.0
       if self.feature_scale != 1.0:
         feat = feat * self.feature_scale
       if level_window is not None:
-        feat = feat * level_window[l]
+        feat = feat * level_window[l].to(dtype)
       outs.append(feat)
     return torch.cat(outs, dim=-1)
 

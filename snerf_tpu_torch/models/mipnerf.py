@@ -5,8 +5,10 @@ randomized training forward.
 The JAX model draws its stratified jitter, resample positions and density
 noise from a PRNG key; JAX and torch streams cannot agree, so here the
 draws enter as a `MipDraws` (made by `make_draws` from a torch.Generator,
-or injected, as the tests inject JAX's own). Not ported yet: the fn1 warp
-(warp_fn=0), the appearance embedding and a bf16 compute dtype.
+or injected, as the tests inject JAX's own). `compute_dtype` bfloat16
+runs both MLPs' trunks in bf16 with float32 heads (models/mlp.py), as
+bench.py trains the model. Not ported yet: the fn1 warp (warp_fn=0) and
+the appearance embedding.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ class MipNerfConfig:
   semantic: bool = False
   semantic_class_num: int = 0
   ipe_method: str = "exact"
+  # the MLPs' activations (float32 or bfloat16); parameters stay float32
+  compute_dtype: torch.dtype = torch.float32
 
   def __post_init__(self):
     if not self.no_warp_sample and self.warp_fn == 0:
@@ -118,10 +122,10 @@ class MipNerfModel(nn.Module):
         enc_features, cond_features, net_width=c.hidden_layer,
         condition_depth=c.rgb_layer,
         num_semantic_channels=c.semantic_class_num if c.semantic else 0,
-        stack_fn=stack_fn, device=device)
+        stack_fn=stack_fn, compute_dtype=c.compute_dtype, device=device)
     self.proposal = ProposalMLP(
         enc_features, net_width=c.proposal_hidden_layer, stack_fn=stack_fn,
-        device=device)
+        compute_dtype=c.compute_dtype, device=device)
 
   def _encode_samples(self, s_or_t_vals, rays: Rays):
     """Cast rays to Gaussians (optionally warped) and IPE-encode them."""

@@ -2,7 +2,7 @@
 snerf_tpu/models/zipnerf.py `ZipNerfModel.__call__`): the deterministic
 eval forward (JAX rng=None) and the randomized training forward.
 
-Encoder arms (`encoder_type`), all float32:
+Encoder arms (`encoder_type`):
   hash     the reference's hash grid (`encoder.embeddings`) into a
            64-wide density layer. Parameter names follow the reference
            torch model (`{prop_mlp_i,nerf_mlp}.encoder.embeddings`,
@@ -37,13 +37,39 @@ JAX's own. `stop_level_grad` detaches each level's intervals. The forward
 returns the `ray_history` (sdist, tdist, weights, density) the losses
 read.
 
+Compute dtype (`ZipNerfConfig.compute_dtype`; the training path trains
+bfloat16 as the JAX zip model does, eval and render run float32 through
+`float32_forward`). Parameters stay float32; the layers listed run in
+the compute dtype, each casting its input, weight and bias per call as
+flax's `nn.Dense(dtype=...)` does. The casts sit where
+`jax.make_jaxpr` of the JAX bf16 ZipMLP's `apply` (hash, ipe-aniso and
+cp_hash-aniso-center arms) lists its `convert_element_type`s:
+  * bf16: the hash arm's 64-wide `density_layer` input (the f32 encode),
+    its hidden output and `x` (its output layer; JAX's `density_out`);
+    the ipe and CP arms' trunk input (the f32 concat), every `ipe_layers`
+    layer, `density_hidden` and `density_out`, so `x` and the raw
+    density are bf16 and the density's softplus runs on bf16;
+  * f32 at each skip-cat (the bf16 layer output joins the f32 trunk
+    input, as jnp.concatenate promotes), bf16 again at the next layer;
+  * the CP encode: each axis' float32 profile and its table cast to
+    bf16, the matmuls, products, level window and features bf16
+    (models/cpgrid.py); cp_hash's fine-level features (the f32 encode)
+    cast to bf16, then the CP, IPE and fine parts concatenated in f32;
+  * the view branch: `x` (bf16) joins the f32 direction encoding in f32,
+    each view layer casts to bf16, its output rejoins the f32 branch
+    input in f32; `rgb_layer` (JAX's `rgb_out`) is float32 on the f32
+    cast of the last view layer's output;
+  * the semantic softmax of bf16 logits (JAX sums its exponentials in
+    f32); the noise (f32 normals) promotes the raw density to f32.
+The encodes (the hash grid, the IPE, the CP profiles) stay float32.
+
 Not ported yet: the cp_tri and mipcast arms, the GLO embedding, density
-and predicted normals, IDE and reflections, roughness, and a bf16
-compute dtype.
+and predicted normals, IDE and reflections, roughness.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -55,7 +81,7 @@ from torch.utils import checkpoint
 from snerf_tpu_torch.models.cpgrid import (CPEncoding, anneal_alpha,
                                            cosine_window)
 from snerf_tpu_torch.models.hashgrid import EncodeFn, HashEncoding, hash_encode
-from snerf_tpu_torch.models.mlp import DenseBlock, _run_trunk
+from snerf_tpu_torch.models.mlp import DenseBlock, StackFn, _run_trunk, linear
 from snerf_tpu_torch.ops import coord, mip, render, stepfun
 from snerf_tpu_torch.ops.fused_mlp import fused_mlp
 from snerf_tpu_torch.ops.rays import Rays
@@ -143,6 +169,8 @@ class ZipNerfConfig:
   cp_tri_level_dim: int = 4
   use_semantic: bool = False
   class_num: int = 19
+  # the MLPs' activations (float32 or bfloat16); parameters stay float32
+  compute_dtype: torch.dtype = torch.float32
   # JAX fields whose other values select parts not ported yet; a config
   # that sets one raises instead of rendering without it.
   num_glo_features: int = 0
@@ -256,10 +284,14 @@ class ZipMLP(nn.Module):
 
   def __init__(self, config: ZipNerfConfig, grid_resolution: int,
                grid_level_dim: int, disable_rgb: bool = False,
-               encode_fn: EncodeFn = hash_encode, device="cuda"):
+               encode_fn: EncodeFn = hash_encode,
+               stack_fn: StackFn = fused_mlp, device="cuda"):
     super().__init__()
     c = self.config = config
     self.disable_rgb = disable_rgb
+    self.stack_fn = stack_fn
+    # read at every forward: `float32_forward` sets it for eval
+    self.compute_dtype = c.compute_dtype
     out_width = 1 if disable_rgb else c.bottleneck_width
     if c.encoder_type == "hash":
       self.encoder = HashEncoding(
@@ -329,11 +361,12 @@ class ZipMLP(nn.Module):
             for i in range(self.config.net_depth_viewdirs)]
 
   def _trunk(self, h):
-    """ipe_layers (+ skip-cats), density_hidden and density_out, each
-    maximal run of square layers one K1 call."""
-    h = _run_trunk([*self.ipe_layers, self.density_hidden], h, fused_mlp,
-                   self.skip_after)
-    return self.density_out(h)
+    """ipe_layers (+ skip-cats), density_hidden and density_out in the
+    compute dtype, each maximal run of square layers one K1 call."""
+    dt = self.compute_dtype
+    h = _run_trunk([*self.ipe_layers, self.density_hidden], h, self.stack_fn,
+                   self.skip_after, dt)
+    return linear(self.density_out, h, dt)
 
   def _ipe(self, z, var, train_frac):
     """Annealable IPE of Gaussians z, var [..., 3] (diagonal variances)."""
@@ -412,7 +445,8 @@ class ZipMLP(nn.Module):
       window = cosine_window(anneal_alpha(train_frac, c.cp_anneal_frac, nl,
                                           z.device), nl)
     feats = self.cp_grid(x01, std01, level_window=window,
-                         collapse=c.cp_collapse_multisamples)
+                         collapse=c.cp_collapse_multisamples,
+                         dtype=self.compute_dtype)
     if c.cp_feature_norm == "center":
       feats = feats - 1.0
     elif c.cp_feature_norm == "layernorm":
@@ -425,7 +459,7 @@ class ZipMLP(nn.Module):
              else (new_std ** 2)[..., None].expand(z.shape))
       parts.append(self._ipe(z, var, train_frac).mean(dim=-2))
     if hasattr(self, "hash_fine"):
-      parts.append(self._fine_features(x01, std01_s, dither))
+      parts.append(self._fine_features(x01, std01_s, dither).to(feats.dtype))
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
   def predict_density(self, means, stds, noise=None, train_frac: float = 1.0,
@@ -449,7 +483,10 @@ class ZipMLP(nn.Module):
       w = torch.erf(1.0 / torch.sqrt(
           8.0 * (new_std[..., None] * g / 2.0) ** 2 + 1e-20))
       feats = (feats * w[..., None]).mean(dim=-3)            # mean over n
-      x = self.density_layer(feats.reshape(*feats.shape[:-2], -1))
+      dt = self.compute_dtype
+      hidden, _, out = self.density_layer
+      h = F.relu(linear(hidden, feats.reshape(*feats.shape[:-2], -1), dt))
+      x = linear(out, h, dt)
     else:
       h = self._encode(means, stds, train_frac, dither)
       if torch.is_grad_enabled():
@@ -473,7 +510,8 @@ class ZipMLP(nn.Module):
                                           dither)
     density = F.softplus(raw_density + c.density_bias)
     if self.disable_rgb:
-      return dict(density=density, rgb=density.new_zeros(*density.shape, 3),
+      return dict(density=density,
+                  rgb=torch.zeros(*density.shape, 3, device=density.device),
                   semantic=None)
     semantic = None
     if c.use_semantic:
@@ -486,10 +524,10 @@ class ZipMLP(nn.Module):
       h = torch.cat([x, dir_enc], dim=-1)
     inputs = h
     for i, layer in enumerate(self.view_layers()):
-      h = F.relu(layer(h))
+      h = F.relu(linear(layer, h, self.compute_dtype))
       if i == 0:
         h = torch.cat([h, inputs], dim=-1)
-    rgb = torch.sigmoid(self.rgb_layer(h))
+    rgb = torch.sigmoid(self.rgb_layer(h.float()))
     rgb = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
     return dict(density=density, rgb=rgb, semantic=semantic)
 
@@ -501,20 +539,22 @@ class ZipNerfModel(nn.Module):
   arm's encoders, cp_hash's fine level); the default is the fused encode
   (`hashgrid.hash_encode`). Passing `hashgrid.hash_encode_plain` builds
   the same model with the per-level plain encode, which only a kernel
-  check needs.
+  check needs; stack_fn runs the trunks' square runs (K1 by default,
+  `fused_mlp_plain` for such a check), as in MipNerfModel.
   """
 
   def __init__(self, config: ZipNerfConfig, encode_fn: EncodeFn = hash_encode,
-               device="cuda"):
+               stack_fn: StackFn = fused_mlp, device="cuda"):
     super().__init__()
     c = self.config = config
     for i in range(c.num_levels - 1):
       res = c.prop_grid_resolutions[min(i, len(c.prop_grid_resolutions) - 1)]
       setattr(self, f"prop_mlp_{i}", ZipMLP(
           c, res, c.prop_grid_level_dim, disable_rgb=True,
-          encode_fn=encode_fn, device=device))
+          encode_fn=encode_fn, stack_fn=stack_fn, device=device))
     self.nerf_mlp = ZipMLP(c, c.nerf_grid_resolution, c.nerf_grid_level_dim,
-                           encode_fn=encode_fn, device=device)
+                           encode_fn=encode_fn, stack_fn=stack_fn,
+                           device=device)
 
   def mlps(self) -> List[ZipMLP]:
     return [getattr(self, f"prop_mlp_{i}")
@@ -602,6 +642,24 @@ class ZipNerfModel(nn.Module):
       ray_history.append(dict(sdist=sdist, tdist=tdist, weights=weights,
                               density=ray_results["density"]))
     return renderings, ray_history
+
+
+@contextlib.contextmanager
+def float32_forward(model: ZipNerfModel):
+  """Run the model's MLPs in float32 inside the block, whatever their
+  compute dtype, on the same parameters: the eval and render paths' twin
+  of a bf16 training model (JAX builds it with `dataclasses.replace(
+  config, compute_dtype=float32)`: train.py's test-view render, eval.py,
+  render.py)."""
+  mlps = model.mlps()
+  dtypes = [m.compute_dtype for m in mlps]
+  for m in mlps:
+    m.compute_dtype = torch.float32
+  try:
+    yield model
+  finally:
+    for m, dt in zip(mlps, dtypes):
+      m.compute_dtype = dt
 
 
 def _ray_basis(directions: torch.Tensor):

@@ -11,6 +11,7 @@ from typing import Callable, Dict
 
 import torch
 
+from snerf_tpu_torch.models.zipnerf import float32_forward
 from snerf_tpu_torch.ops.rays import Rays
 
 RenderFn = Callable[[Rays], Dict[str, torch.Tensor]]
@@ -56,7 +57,9 @@ def make_eval_render_fn(model, white_bkgd: bool = False) -> RenderFn:
 
 def make_zip_eval_render_fn(model) -> RenderFn:
   """Deterministic zip-nerf render of the finest level under inference
-  mode (counterpart of `make_zip_param_render_fn`).
+  mode (counterpart of `make_zip_param_render_fn`), its MLPs in float32
+  whatever their training compute dtype (`zipnerf.float32_forward`), as
+  the JAX eval, render and test-view paths build their model.
 
   Returns Rays -> dict(rgb [N, 3], distance [N, 1] (the finest level's
   depth), acc [N, 1], and semantic [N, C] when the model has a semantic
@@ -64,7 +67,7 @@ def make_zip_eval_render_fn(model) -> RenderFn:
   """
 
   def render_fn(rays: Rays) -> Dict[str, torch.Tensor]:
-    with torch.inference_mode():
+    with torch.inference_mode(), float32_forward(model):
       fine = model(rays)[0][-1]
     out = {"rgb": fine["rgb"], "distance": fine["depth"][..., None],
            "acc": fine["acc"][..., None]}

@@ -6,7 +6,8 @@ Here the plain versions, which the CPU wrapper and the CPU autograd path
 run, are held against the Pallas kernel in interpret mode and its custom
 VJP under jax.grad (as tests/test_zipnerf.py runs it). Tolerance atol
 1e-4 / rtol 1e-4: both are float32 matmuls with other summation orders,
-at D = 256 (the backward's sums over N = 300 rows included).
+at D = 256 (the backward's sums over N = 300 rows included). The bf16
+forms are held against JAX in tests/test_torch_bf16.py.
 """
 
 import jax
@@ -119,11 +120,25 @@ def test_fused_mlp_function_gradcheck_float64(last_relu):
 
 
 def test_bf16_under_autograd_raises():
+  """bf16 under autograd, which raised before the bf16 trunks were
+  ported, runs on the CPU plain path: the forward equals the eval
+  forward, and the grads (bf16, in the leaves' dtypes) are
+  fused_mlp_bwd_plain's on the layers the forward kept, bit for bit; no
+  kernel launches. tests/test_torch_bf16.py holds them against JAX."""
   x, w, b = (torch.from_numpy(a).bfloat16() for a in _inputs(2, seed=7))
-  with pytest.raises(NotImplementedError):
-    fused_mlp(x, w.requires_grad_(), b, True)
-  with torch.no_grad():   # forward-only bf16 stays supported
-    assert fused_mlp(x, w, b, True).dtype == torch.bfloat16
+  g = torch.from_numpy(np.random.RandomState(8).normal(
+      size=(N, D)).astype(np.float32)).bfloat16()
+  leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+  out = fused_mlp(*leaves, True)
+  out.backward(g)
+  with torch.no_grad():   # the forward-only call
+    assert torch.equal(out, fused_mlp(x, w, b, True))
+  layers = [fused_mlp_plain(x, w[:1], b[:1], True), out.detach()]
+  want = fused_mlp_bwd_plain(x, w, b, layers, g, True)
+  for leaf, wt in zip(leaves, want):
+    assert leaf.grad.dtype == torch.bfloat16
+    assert torch.equal(leaf.grad, wt)
+  assert fused_mlp.launches == 0
 
 
 @pytest.mark.parametrize("n,d,want", [
@@ -140,6 +155,22 @@ def test_wgrad_splits(n, d, want):
   rows, splits = wgrad_splits(n, d, 132)
   assert (rows, splits) == want
   assert rows % 32 == 0 and splits * rows >= n > (splits - 1) * rows
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (2 ** 21, 512, (2048, 1024)),    # cp_hash proposal: 8 tiles of 128 x 256
+    (2 ** 20, 512, (2048, 512)),     # cp_hash nerf: splits of >= 2,048
+    (4064 * 128, 1024, (2048, 254)),  # bench fine: 8 x 4 tiles
+    (4096 * 128, 256, (2048, 256)),  # bench proposal: one 256-wide column
+    (777, 256, (832, 1)),            # small: one split
+])
+def test_wgrad_splits_bf16(n, d, want):
+  """The bf16 wgrad's split: 64-row k-stages and 128 x 256 tiles, about 64
+  waves of one block per SM, each split at least 2,048 rows unless N is
+  shorter."""
+  rows, splits = wgrad_splits(n, d, 132, torch.bfloat16)
+  assert (rows, splits) == want
+  assert rows % 64 == 0 and splits * rows >= n > (splits - 1) * rows
 
 
 def _bits(*patterns):

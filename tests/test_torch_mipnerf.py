@@ -196,6 +196,9 @@ def test_model_config_matches_jax_adapter():
   cfg = load_config(["--config", "configs/nuScenes_depth_6cams"])
   got = dataclasses.asdict(tconfig.model_config(cfg))
   want = dataclasses.asdict(cfg.model_config())
+  # float32 in both: no flag sets the mip model's compute dtype
+  assert str(got.pop("compute_dtype")) == "torch.float32"
+  assert want["compute_dtype"].__name__ == "float32"
   for k, v in got.items():
     assert want[k] == v, k
   assert (got["hidden_layer"], got["rgb_layer"], got["num_fine"]) == \

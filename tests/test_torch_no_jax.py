@@ -1,5 +1,6 @@
 """The port (the mip and zip render paths, both train steps, the mip one
-with the depth confidence, the cp_hash train step and the ipe render,
+with the depth confidence, the zip ones with bf16 MLPs as shipped, the
+cp_hash train step and the ipe render,
 and the entry points on the realfocal fixture
 with the confidence and --lpips) runs where JAX, imageio, cv2,
 PIL and TensorBoard are absent, as on the card's machine, and loads no
@@ -101,12 +102,11 @@ zflags = load_config(["--config", "configs/waymo_zipnerf",
                       "--zip_prop_grid_resolutions", "(64, 128)",
                       "--zip_nerf_grid_resolution", "256",
                       "--zip_bottleneck_width", "32", "--zip_batch_size", "32",
-                      "--zip_patch_size", "2", "--zip_lr_delay", "0",
-                      # JAX trains bf16 here; the port f32 until B.2
-                      "--zip_compute_dtype", "float32"])
+                      "--zip_patch_size", "2", "--zip_lr_delay", "0"])
 zscene = make_synthetic_scene(num_images=3, H=8, W=8, n_render_samples=8)
 zscene.semantics = (zscene.depths > zscene.depths.mean()).astype("int32")
 zscene.skymask = zscene.depths > 1e9
+# the shipped compute dtype: bf16 MLPs
 zstate = create_zip_train_state(0, zip_model_config(zflags),
                                 zip_train_config(zflags), zscene.num_images,
                                 device="cpu")
@@ -116,6 +116,7 @@ zstep = make_zip_train_step(zstate.model, zip_train_config(zflags),
 zlosses = [float(zstep(zstate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in zlosses), zlosses
 assert zstate.step == 2
+assert zstate.model.nerf_mlp.compute_dtype == torch.bfloat16
 print("ZIP TRAINED", zstate.step)
 # the ipe and CP arms: configs/waymo_zipnerf_tpu (cp_hash) trains, an
 # anisotropic ipe model renders
@@ -131,8 +132,7 @@ aflags = load_config(["--config", "configs/waymo_zipnerf_tpu",
                       "--zip_ipe_density_width", "16",
                       "--zip_density_hidden_width", "16",
                       "--zip_ipe_max_deg", "4", "--zip_bottleneck_width", "32",
-                      "--zip_batch_size", "32", "--zip_patch_size", "2",
-                      "--zip_compute_dtype", "float32"])
+                      "--zip_batch_size", "32", "--zip_patch_size", "2"])
 astate = create_zip_train_state(0, zip_model_config(aflags),
                                 zip_train_config(aflags), zscene.num_images,
                                 device="cpu")
@@ -142,6 +142,7 @@ astep = make_zip_train_step(astate.model, zip_train_config(aflags),
 alosses = [float(astep(astate, gen)["loss"]) for _ in range(2)]
 assert all(math.isfinite(v) for v in alosses), alosses
 assert astate.ema is not None
+assert astate.model.nerf_mlp.compute_dtype == torch.bfloat16
 print("CP TRAINED", astate.step)
 import dataclasses
 ipe_cfg = dataclasses.replace(zip_model_config(aflags), encoder_type="ipe",
@@ -183,8 +184,10 @@ def _run(args, cwd, **env):
 
 
 def test_port_imports_and_renders_with_jax_blocked():
+  # two intra-op threads: the script is thousands of tiny ops, which more
+  # threads only slow down where other test processes share the cores
   proc = _run([sys.executable, "-c", RENDER_WITHOUT_JAX], REPO,
-              PYTHONPATH=REPO)
+              PYTHONPATH=REPO, OMP_NUM_THREADS="2")
   assert proc.returncode == 0, proc.stderr[-3000:]
   assert "RENDERED (4, 4, 3)" in proc.stdout
   assert "ZIP RENDERED (4, 4, 3)" in proc.stdout

@@ -195,6 +195,9 @@ def test_zip_model_config_matches_jax_adapter():
   cfg = load_config(["--config", "configs/waymo_zipnerf"])
   got = dataclasses.asdict(tconfig.zip_model_config(cfg))
   want = dataclasses.asdict(cfg.zip_model_config())
+  # the shipped bf16, by name: torch.bfloat16 for jnp.bfloat16
+  assert str(got.pop("compute_dtype")) == "torch.bfloat16"
+  assert want["compute_dtype"].__name__ == "bfloat16"
   for k, v in got.items():
     assert want[k] == v, k
   assert (got["num_prop_samples"], got["num_nerf_samples"],
