@@ -180,7 +180,11 @@ Phases, each fatal on failure:
        k-tile of every layer zeroed) that must exceed it, two backward
        runs bit-identical; CUDA-event times in turns with the plain
        versions, and each backward kernel alone against its plain version
-       and one bf16 PyTorch call (dz @ w.T, act.T @ dz);
+       and the bf16 PyTorch calls of the same function: dgrad with its
+       mask against torch.matmul(dz, w.T) * (act > 0), the bare GEMM and
+       the GEMM plus the mask's bytes beside it, dgrad without a mask (the
+       dx launch) against the bare GEMM, wgrad + reduce against act.T @
+       dz; then a ragged case (65,573 x 512 x 3), checked, not timed;
      11b. one bf16 train step each of waymo_zipnerf and waymo_zipnerf_tpu
        as shipped (zip_lr_delay 0) on the synthetic scene: s/step over 3
        steps, peak memory, the launches of one step (the cp_hash step:
@@ -1246,7 +1250,8 @@ def zip_slice(torch, scene, views, view_rays, card):
 def sass_check(so, nvcc):
   """The SASS of K1's f32 and bf16 forward, dgrad and wgrad kernels in
   the built library (cuobjdump -sass, beside nvcc): each must hold wgmma
-  (HGMMA) and TMA loads (UTMALDG)."""
+  (HGMMA) and TMA loads (UTMALDG), and the bf16 dgrad (with and without
+  its mask) TMA stores (UTMASTG)."""
   tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
   out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                        text=True, timeout=120)
@@ -1255,31 +1260,36 @@ def sass_check(so, nvcc):
   labels = (("f32 forward", "k1_wgmma_kernelILb0E"),
             ("dgrad", "k1_wgmma_kernelILb1E"),
             ("wgrad", "fused_mlp_bwd_wgrad_kernel"),
-            ("bf16 forward", "k1_bf16_kernelILb0E"),
-            ("bf16 dgrad", "k1_bf16_kernelILb1E"),
+            ("bf16 forward", "k1_bf16_fwd_kernel"),
+            ("bf16 dgrad", "k1_bf16_dgrad_kernelILb1E"),
+            ("bf16 dgrad, no mask", "k1_bf16_dgrad_kernelILb0E"),
             ("bf16 wgrad", "k1_bf16_wgrad_kernel"))
   for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
     name = body.split("\n", 1)[0].strip()
     for label, key in labels:
       if key in name:
-        found[label] = (body.count("HGMMA"), body.count("UTMALDG"))
-  log(f"  SASS of K1's wgmma kernels (HGMMA, UTMALDG): {found}")
+        found[label] = tuple(body.count(op) for op in ("HGMMA", "UTMALDG",
+                                                       "UTMASTG"))
+  log(f"  SASS of K1's wgmma kernels (HGMMA, UTMALDG, UTMASTG): {found}")
   for label, _ in labels:
-    hgmma, utmaldg = found.get(label, (0, 0))
+    hgmma, utmaldg, utmastg = found.get(label, (0, 0, 0))
     check(hgmma > 0 and utmaldg > 0, f"K1 {label}: the SASS lacks wgmma "
           f"or TMA loads (HGMMA {hgmma}, UTMALDG {utmaldg})")
+    check(utmastg > 0 or "dgrad" not in label or "bf16" not in label,
+          f"K1 {label}: the SASS lacks TMA stores (UTMASTG {utmastg})")
 
 
 def spill_check(build_log):
   """ptxas's spill stores and loads of K1's wgmma kernels (f32 and bf16
-  forward, dgrad, wgrad) from the build's -v lines: each must be 0."""
-  k1 = spill_lines(build_log, ("k1_wgmma_kernel", "k1_bf16_kernel",
-                               "k1_bf16_wgrad_kernel",
+  forward, dgrad (bf16: with and without its mask), wgrad) from the
+  build's -v lines: each must be 0."""
+  k1 = spill_lines(build_log, ("k1_wgmma_kernel", "k1_bf16_fwd_kernel",
+                               "k1_bf16_dgrad_kernel", "k1_bf16_wgrad_kernel",
                                "fused_mlp_bwd_wgrad_kernel"))
   short = lambda n: re.search(r"\d((k1|fused_mlp_bwd)_\w+)", n).group(1)[:32]
   log(f"  spill stores/loads of K1's wgmma kernels: "
       f"{ {short(n): v[:2] for n, v in k1.items()} }")
-  check(len(k1) == 6, f"ptxas lines of K1's six wgmma kernels not found: "
+  check(len(k1) == 7, f"ptxas lines of K1's seven wgmma kernels not found: "
         f"{sorted(k1)}")
   check(all(v[:2] == (0, 0) for v in k1.values()), f"K1's wgmma kernels "
         f"spill: {k1}")
@@ -2078,10 +2088,10 @@ JAX_CELL_PSNR = {500: (28.39, 27.66, 27.80), 1000: (31.42, 31.37, 31.45),
 CELL_PSNR_FLOOR = min(JAX_CELL_PSNR[CELL_STEPS]) - 1.5
 # K1's kernels by name in a profile, f32 and bf16
 K1_PROFILE_KINDS = (("k1_wgmma_kernel<false>", "K1 forward"),
-                    ("k1_bf16_kernel<false", "K1 forward"),
+                    ("k1_bf16_fwd_kernel", "K1 forward"),
                     ("tf32_split", "K1 tf32_split"),
                     ("k1_wgmma_kernel<true>", "K1 dgrad"),
-                    ("k1_bf16_kernel<true", "K1 dgrad"),
+                    ("k1_bf16_dgrad_kernel", "K1 dgrad"),
                     ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
                     ("k1_bf16_wgrad_kernel", "K1 wgrad + reduce"),
                     ("fused_mlp_bwd_reduce", "K1 wgrad + reduce"))
@@ -2974,6 +2984,10 @@ BF16_CASES = (
     ("bf16 bench fine trunk_6..7", TRAIN_FINE_ROWS, 1024, 2),
     ("bf16 bench proposal trunk_1..3", ROWS, 256, 3),
 )
+# A ragged N, checked but not timed: the last band of 37 rows, a column
+# tile's TMA store and mask load clipped there, a last wgrad split of
+# 3,173 rows.
+BF16_RAGGED = ("bf16 ragged", 65_573, 512, 3)
 # K1's bf16 kernels against their plain versions on the card, as a
 # fraction of max|plain| per tensor (out; dx, dW, db). Both round the f32
 # sums once to bf16, the kernels' sums in another order, so an output
@@ -3008,11 +3022,12 @@ def _fault_w(w):
   return wf
 
 
-def bf16_case(torch, fm, name, n, d, n_layers, iters):
+def bf16_case(torch, fm, name, n, d, n_layers, iters, timed=True):
   """11a at one shape: K1's bf16 forward (eval and keeping its layers) and
   backward against fused_mlp_plain / fused_mlp_bwd_plain in bf16 on the
   card, each beside its fault reading; two backward runs bit-identical;
-  CUDA-event times in turns with the plain versions; the bounds."""
+  with `timed`, CUDA-event times in turns with the plain versions and the
+  bounds."""
   gen = torch.Generator(device="cuda").manual_seed(n * 3 + d + n_layers)
   bf16 = torch.bfloat16
   x = (torch.randn(n, d, generator=gen, device="cuda") * 0.5).to(bf16)
@@ -3045,36 +3060,12 @@ def bf16_case(torch, fm, name, n, d, n_layers, iters):
   faults = {k: e / max(m, 1e-30) for k, (e, m) in _rel_errs(kb, fb).items()}
   del fb, kb
   torch.cuda.empty_cache()
-  with torch.no_grad():
-    p1 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
-    k1 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
-    k2 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
-    p2 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
-  bp1 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
-                                                      True), iters)
-  bk1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
-                                                True), iters)
-  bk2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
-                                                True), iters)
-  bp2 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
-                                                      True), iters)
-  k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-  bk_ms, bp_ms = (bk1 + bk2) / 2, (bp1 + bp2) / 2
-  flop = 2.0 * n * d * d * n_layers
-  b_ms, b_by = bound_ms((2 * n * d + n_layers * (d * d + d)) * 2, flop,
-                        BF16_MMA_RATE)
   log(f"  {name}: N={n} D={d} L={n_layers}: forward err {fwd_err:.2e} of "
       f"max|plain| (fault {fwd_fault:.2e}, tol {BF16_FWD_TOL}), keeping "
       f"its layers bit-equal to eval: {keep_equal}; backward "
       f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (faults "
       f"{ {k: f'{v:.2e}' for k, v in faults.items()} }, tol {BF16_BWD_TOL})"
       f", two runs bit-equal: {det}")
-  log(f"    forward {k_ms:.3f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s; bound "
-      f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of it), plain "
-      f"{p_ms:.3f} ms [{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]; backward "
-      f"(dgrad + wgrad + reduce a layer) {bk_ms:.3f} ms "
-      f"({2 * flop / bk_ms / 1e9:.1f} TFLOP/s), plain {bp_ms:.3f} ms "
-      f"[{bk1:.3f}/{bk2:.3f} vs {bp1:.3f}/{bp2:.3f}]")
   check(keep_equal, f"{name}: the forward keeping its layers differs from "
         "the eval forward")
   check(det, f"{name}: two bf16 backward runs differ")
@@ -3084,21 +3075,54 @@ def bf16_case(torch, fm, name, n, d, n_layers, iters):
   check(all(errs[k] <= BF16_BWD_TOL < faults[k] for k in errs),
         f"{name}: bf16 backward errs {errs} (faults {faults}, tol "
         f"{BF16_BWD_TOL})")
+  res = dict(err=max(fwd_err, *errs.values()), fwd_err=fwd_err,
+             bwd_errs=errs)
+  if timed:
+    with torch.no_grad():
+      p1 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
+      k1 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
+      k2 = time_ms(torch, lambda: fm.fused_mlp(x, w, b, True), iters)
+      p2 = time_ms(torch, lambda: fm.fused_mlp_plain(x, w, b, True), iters)
+    bp1 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                        True), iters)
+    bk1 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
+                                                  True), iters)
+    bk2 = time_ms(torch, lambda: fm.fused_mlp_bwd(x, w, b, saved, g, None,
+                                                  True), iters)
+    bp2 = time_ms(torch, lambda: fm.fused_mlp_bwd_plain(x, w, b, saved, g,
+                                                        True), iters)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bk_ms, bp_ms = (bk1 + bk2) / 2, (bp1 + bp2) / 2
+    flop = 2.0 * n * d * d * n_layers
+    b_ms, b_by = bound_ms((2 * n * d + n_layers * (d * d + d)) * 2, flop,
+                          BF16_MMA_RATE)
+    log(f"    forward {k_ms:.3f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s; bound "
+        f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of it), plain "
+        f"{p_ms:.3f} ms [{k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}]; backward "
+        f"(dgrad + wgrad + reduce a layer) {bk_ms:.3f} ms "
+        f"({2 * flop / bk_ms / 1e9:.1f} TFLOP/s), plain {bp_ms:.3f} ms "
+        f"[{bk1:.3f}/{bk2:.3f} vs {bp1:.3f}/{bp2:.3f}]")
+    res.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               bwd_ms=bk_ms, bwd_plain_ms=bp_ms)
   del x, w, b, g, got, out, kept, saved
   torch.cuda.empty_cache()
-  return dict(err=max(fwd_err, *errs.values()), fwd_err=fwd_err,
-              bwd_errs=errs, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-              bound_by=b_by, bwd_ms=bk_ms, bwd_plain_ms=bp_ms)
+  return res
 
 
 def bf16_kernel_times(torch, fm, n, d, iters):
-  """Each bf16 backward kernel alone at one layer of n rows x d: dgrad
-  against its plain version bf16((dz @ w.T) * (mask > 0)) in f32
-  accumulation and one bf16 PyTorch call, torch.matmul(dz, w.t()); wgrad
-  plus the reduce against act.T @ dz and dz.sum(0) in f32 and one bf16
-  call, act.t() @ dz. Errors as a fraction of max|plain|, CUDA-event
-  times in turns, the bounds (dgrad reads dz and the mask and writes its
-  output; wgrad reads act and dz and writes dW and db in f32)."""
+  """Each bf16 backward kernel alone at one layer of n rows x d, errors as
+  a fraction of max|plain|, CUDA-event times in turns, the bounds:
+
+  - dgrad with its mask against its plain version bf16((dz @ w.T) * (mask
+    > 0)) in f32 accumulation and the bf16 PyTorch calls of the same
+    function, torch.matmul(dz, w.t()) * (mask > 0) (library_ms), with the
+    bare GEMM (gemm_ms) and the GEMM plus the mask's bytes at HBM_RATE
+    (gemm_mask_ms) beside; it reads dz and the mask and writes its output;
+  - dgrad without a mask (the dx launch) against bf16(dz @ w.T) and the
+    bare GEMM (dx_*);
+  - wgrad plus the reduce against act.T @ dz and dz.sum(0) in f32 and one
+    bf16 call, act.t() @ dz; it reads act and dz and writes dW and db in
+    f32 (the partials' bytes and the reduce's own time beside)."""
   gen = torch.Generator(device="cuda").manual_seed(13)
   bf16, f32 = torch.bfloat16, torch.float32
   dz = torch.randn(n, d, generator=gen, device="cuda").to(bf16)
@@ -3119,6 +3143,12 @@ def bf16_kernel_times(torch, fm, n, d, iters):
   def dgrad_plain():
     return ((dz.float() @ w.float().t()) * (act > 0)).to(bf16)
 
+  def dx():
+    return fm.fused_mlp_bwd_dgrad_bf16(dz, w, None, out)
+
+  def dx_plain():
+    return (dz.float() @ w.float().t()).to(bf16)
+
   def wgrad():
     fm.fused_mlp_bwd_wgrad_bf16(act, dz, part_w, part_b, rows)
     fm.fused_mlp_bwd_reduce(part_w, part_b, dw, db)
@@ -3127,10 +3157,13 @@ def bf16_kernel_times(torch, fm, n, d, iters):
   def wgrad_plain():
     return act.float().t() @ dz.float(), dz.float().sum(0)
 
+  gemm = lambda: torch.matmul(dz, w.t())
+  flop = 2.0 * n * d * d
   res = {}
   for name, kern, plain, library, nbytes in (
       ("fused_mlp_bwd_dgrad_bf16", dgrad, dgrad_plain,
-       lambda: torch.matmul(dz, w.t()), (3 * n * d + d * d) * 2),
+       lambda: torch.matmul(dz, w.t()) * (act > 0), (3 * n * d + d * d) * 2),
+      ("dx", dx, dx_plain, gemm, (2 * n * d + d * d) * 2),
       ("fused_mlp_bwd_wgrad_bf16", wgrad, wgrad_plain,
        lambda: act.t() @ dz, 2 * n * d * 2 + (d * d + d) * 4)):
     got, want = kern(), plain()
@@ -3139,25 +3172,46 @@ def bf16_kernel_times(torch, fm, n, d, iters):
     pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
     err = max(float((a.float() - p.float()).abs().max()) for a, p in pairs)
     scale = max(float(p.float().abs().max()) for _, p in pairs)
+    del got, want, pairs
     p1 = time_ms(torch, plain, iters)
     k1 = time_ms(torch, kern, iters)
+    l1 = time_ms(torch, library, iters)
+    l2 = time_ms(torch, library, iters)
     k2 = time_ms(torch, kern, iters)
     p2 = time_ms(torch, plain, iters)
-    lib = time_ms(torch, library, iters)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    flop = 2.0 * n * d * d
+    k_ms, p_ms, lib = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
     b_ms, b_by = bound_ms(nbytes, flop, BF16_MMA_RATE)
     log(f"  {name} alone, N={n} D={d}"
         + (f" (splits {splits} x {rows} rows)" if "wgrad" in name else "")
         + f": err {err / scale:.2e} of max|plain|; kernel {k_ms:.3f} ms "
         f"({flop / k_ms / 1e9:.1f} TFLOP/s, bound {b_ms:.3f} ms ({b_by}), "
-        f"{100 * b_ms / k_ms:.1f}% of it), plain {p_ms:.3f} ms, one bf16 "
-        f"PyTorch call {lib:.3f} ms [{k1:.3f}/{k2:.3f} vs {p1:.3f}/"
-        f"{p2:.3f}]")
+        f"{100 * b_ms / k_ms:.1f}% of it), plain {p_ms:.3f} ms, the bf16 "
+        f"PyTorch call(s) {lib:.3f} ms [{k1:.3f}/{k2:.3f} vs {l1:.3f}/"
+        f"{l2:.3f}; plain {p1:.3f}/{p2:.3f}]")
     check(err <= BF16_BWD_TOL * scale, f"{name} at N={n} D={d} disagrees "
           f"with plain: {err / scale}")
-    res[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib,
-                     bound_ms=b_ms, bound_by=b_by)
+    res[name] = dict(err=err, scale=scale, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+  # the masked dgrad's other yardsticks: the bare GEMM and it plus the
+  # mask's bytes; the unmasked dgrad's numbers beside it
+  dg, dxr = res["fused_mlp_bwd_dgrad_bf16"], res.pop("dx")
+  dg.update(gemm_ms=dxr["library_ms"],
+            gemm_mask_ms=dxr["library_ms"] + n * d * 2 / HBM_RATE * 1e3,
+            dx_ms=dxr["ms"], dx_err=dxr["err"], dx_plain_ms=dxr["plain_ms"],
+            dx_bound_ms=dxr["bound_ms"], dx_bound_by=dxr["bound_by"])
+  # wgrad: its partials' bytes, the reduce alone
+  red = [time_ms(torch, lambda: fm.fused_mlp_bwd_reduce(part_w, part_b, dw,
+                                                       db), iters)
+         for _ in range(2)]
+  res["fused_mlp_bwd_wgrad_bf16"].update(
+      splits=splits, partial_bytes=part_w.numel() * 4 + part_b.numel() * 4,
+      reduce_ms=sum(red) / 2)
+  log(f"    dgrad {dg['ms']:.3f} ms against the GEMM {dg['gemm_ms']:.3f} ms "
+      f"+ the mask's bytes = {dg['gemm_mask_ms']:.3f} ms; without its mask "
+      f"{dg['dx_ms']:.3f} ms (err {dxr['err'] / dxr['scale']:.2e}) against the "
+      f"GEMM; wgrad's {splits} partials {part_w.numel() * 4 / 2**20:.1f} "
+      f"MiB, the reduce {sum(red) / 2:.3f} ms of its "
+      f"{res['fused_mlp_bwd_wgrad_bf16']['ms']:.3f}")
   del dz, act, w, part_w, part_b, dw, db, out
   torch.cuda.empty_cache()
   return res
@@ -3173,7 +3227,8 @@ def bf16_shapes_phase(torch):
   cases = {c[0]: bf16_case(torch, fm, *c, 3) for c in BF16_CASES}
   alone = {(n, d): bf16_kernel_times(torch, fm, n, d, 3)
            for n, d in sorted({(c[1], c[2]) for c in BF16_CASES})}
-  return dict(cases=cases, alone=alone)
+  ragged = bf16_case(torch, fm, *BF16_RAGGED, 0, timed=False)
+  return dict(cases=cases, alone=alone, ragged=ragged)
 
 
 class PlainBf16Stack:
@@ -3897,11 +3952,16 @@ def main() -> int:
       if ((c_n in (TPU_PROP_ROWS, TPU_NERF_ROWS))
           == (case == "bf16 bench")):
         continue
-      for name in ("fused_mlp_bwd_dgrad_bf16", "fused_mlp_bwd_wgrad_bf16"):
+      for name, extra in (
+          ("fused_mlp_bwd_dgrad_bf16", ("gemm_ms", "gemm_mask_ms", "dx_ms",
+                                        "dx_plain_ms", "dx_bound_ms")),
+          ("fused_mlp_bwd_wgrad_bf16", ("splits", "partial_bytes",
+                                        "reduce_ms"))):
         kernels.append(dict(entry(
             name, "fused_mlp.cu", "snerf_tpu/ops/pallas/fused_mlp.py:104",
             counts.get(name, 0), alone[name]["err"], alone[name]),
-            name=f"{name} ({case[5:]} layer, {c_n:,} x {c_d})", path=path))
+            name=f"{name} ({case[5:]} layer, {c_n:,} x {c_d})", path=path,
+            **{k: alone[name][k] for k in extra}))
   log(json.dumps({"kernels": kernels}))
   log(card)
   log(json.dumps({"ok": True, "device": {

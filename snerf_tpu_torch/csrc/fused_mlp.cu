@@ -92,7 +92,21 @@
 //     one rounding a layer after the bias and ReLU in f32, as the Pallas
 //     kernel's epilogue).
 //   * dgrad: dz_{i-1} = bf16((dz_i W_i^T) * (act_i > 0)); B(k = out, n =
-//     in) = W[in][out] lies K-major, A = dz K-major.
+//     in) = W[in][out] lies K-major, A = dz K-major. Its first kernel ran
+//     the forward's schedule at ~2x the bf16 cuBLAS GEMM, and without its
+//     epilogue's stores its mainloop beat that GEMM (PERF.md): the bf16x2
+//     stores straight from the accumulator (8 rows x 16 bytes a warp) and
+//     the short blocks that exited after them cost the rest. So dgrad is
+//     persistent, one block a SM walking its (band, column tile) tiles in
+//     order, the producer's ring running on across tiles, and its
+//     epilogue goes through shared memory: each consumer warpgroup writes
+//     its 64 x 256 half, bank-free in the 128-byte swizzle, into its own
+//     buffer, and warp 9 stores the half by TMA (cp.async.bulk.tensor,
+//     clipping the ragged edge) while the next tile's loads and wgmmas
+//     run, then loads the next tile's mask half into the same buffer by
+//     TMA, so the epilogue reads the mask from shared memory. A stage is
+//     handed back as soon as its own wgmmas retire. 3 stages of 48 KB
+//     beside the 64 KB of buffers.
 //   * wgrad: dW = act^T dz over a split of N: A(m, k) = act[k][m] and
 //     B(k, n) = dz[k][n] both MN-major, boxes of [64 rows, 64 values]; no
 //     shared-memory transpose. The f32 partial is added into every 2,048
@@ -100,16 +114,19 @@
 //     wrapper rounds dW and db to bf16 once. db: the blocks of the first
 //     tile row sum their dz columns from the stage in shared memory while
 //     the wgmmas run. The caller splits N into runs of ~2,048 rows (64
-//     waves of blocks): longer splits ran slower (PERF.md).
+//     waves of blocks): longer splits ran slower. Splits of a wave each
+//     (1 GiB of partials down to 16 MiB at 2,097,152 x 512) run their
+//     mainloop faster than the bf16 cuBLAS GEMM, but every way tried of
+//     adding the accumulator into an f32 sum every 2,048 rows, and of
+//     summing db, on this card cost more than the partials save (PERF.md).
 //   What bounds them: at the zip trunks' shapes (2,097,152 x 512) the
 //   forward's 4 layers are 4.4 TFLOP, 4.45 ms at 989 TFLOP/s; dgrad
 //   moves dz, the mask and its output (6.4 GB, 1.92 ms at 3.35 TB/s)
-//   above its 1.1 ms of products. These first kernels reach ~35-50% of
-//   that, and one layer's mainloop takes ~1.75x the bf16 cuBLAS GEMM of
-//   the same shape (PERF.md, probes/k1_bf16.py); dgrad's mask read in
-//   the unoverlapped epilogue adds ~17%. Tried and slower: two-CTA
-//   clusters sharing W by TMA multicast, a persistent grid, and an L2
-//   prefetch of the mask.
+//   above its 1.1 ms of products; wgrad reads act and dz (4.3 GB, 1.28
+//   ms). Tried and slower for dgrad (PERF.md): two-CTA clusters sharing W
+//   by TMA multicast (here and in the first kernel), a band's column
+//   tiles on one block, its stores by the warps instead of TMA, a skew
+//   between the warpgroups, 6 stages of 24 KB, an L2 prefetch of the mask.
 //
 // Backward, per layer i from the last (act_0 = x, act_{i+1} = layer i's
 // output, dz_i = dL/d(pre-activation of layer i), all f32):
@@ -889,9 +906,9 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part_w,
 }
 
 // ------------------------------------------------ bf16 (wgmma, SS form)
-// See the note at the top. A stage: a [128, kQBK] A tile (16 KB), then the
-// B tile of kQBN columns (K-major [kQBN, kQBK], or 4 MN-major [kQBK, 64]
-// boxes, 32 KB).
+// See the note at the top. A forward or dgrad stage: a [128, kQBK] A tile
+// (16 KB), then the B tile of kQBN columns (K-major [kQBN, kQBK], or 4
+// MN-major [kQBK, 64] boxes, 32 KB).
 constexpr int kQBK = 64;                       // bf16 k-depth of a stage
 constexpr int kQBN = 256;                      // columns of an output tile
 constexpr uint32_t kQTileA = 128 * kQBK * 2;   // 16 KB
@@ -901,8 +918,12 @@ constexpr uint32_t kQStageBytes = kQTileA + kQBN * kQBK * 2;
 constexpr int kQStages = 4;
 constexpr size_t kQSmem = (size_t)kQStages * kQStageBytes +
                           2 * kQStages * sizeof(uint64_t) + 1024;
-constexpr int kQPromoteStages = 2048 / kQBK;   // wgrad: partial every 2,048
 static_assert(kQSmem <= 232448, "the bf16 stages exceed 227 KB");
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
 
 struct QRing {
   unsigned char* base;  // 1024-byte aligned
@@ -918,8 +939,7 @@ struct QRing {
 
 __device__ __forceinline__ QRing qring_init(unsigned char* raw) {
   QRing ring;
-  ring.base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  ring.base = align1024(raw);
   ring.full = reinterpret_cast<uint64_t*>(ring.base + kQStages * kQStageBytes);
   ring.empty = ring.full + kQStages;
   if (threadIdx.x == 0) {
@@ -935,9 +955,9 @@ __device__ __forceinline__ QRing qring_init(unsigned char* raw) {
 
 // The descriptor of an MN-major bf16 operand as TMA writes it: [kQBK k
 // rows, 64 values] boxes with the 128-byte swizzle, 8-row k groups 1024
-// bytes apart (SBO) and each next 64 values of MN one box (8 KB) on
-// (LBO). +128 per 16-deep k step (16 rows, 2 KB). smem_desc above
-// describes a K-major tile of bf16 as of f32 (+2 per k step, 32 bytes).
+// bytes apart (SBO) and each next 64 values of MN one box (8 KB) on (LBO).
+// +128 per 16-deep k step (16 rows, 2 KB). smem_desc above describes a
+// K-major tile of bf16 as of f32 (+2 per k step, 32 bytes).
 __device__ __forceinline__ uint64_t smem_desc_mn(const void* tile) {
   const uint64_t a = smem_u32(tile);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(kQBox >> 4) << 16) |
@@ -1029,20 +1049,36 @@ __device__ __forceinline__ void qdrain(const QRing& ring,
   if (lane == 0) mbar_arrive(&ring.empty[(it + kQStages - 1) % kQStages]);
 }
 
-// bf16 forward (kDgrad false) or dgrad (kDgrad true) on a 128-row band in
-// output tiles of kQBN columns, the f32 kernel's schedule: tm_x = x
-// (dgrad: dz), tm_out / tm_tmp / tm_saved the forward's layer outputs
-// read back, tm_w the weights [L, in, out] (dgrad: the layer's W, one
-// slab); vec = the biases [L, d] (dgrad: the mask, or null).
-template <bool kDgrad>
+// One landed stage of dgrad's consumer warpgroup: its four wgmmas as one
+// group, retired before the stage is handed back, so that the producer
+// refills it a stage sooner (3 stages; with wait_group 1 and the release
+// a stage later, as qstage, dgrad ran 4-8% slower).
+__device__ __forceinline__ void qstage_retire(uint64_t* empty, int s,
+                                              float (&acc)[kQBN / 2],
+                                              uint64_t da, uint64_t db,
+                                              int lane) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_bf16<0, 0>(acc, da + 2 * j, db + 2 * j);
+  wgmma_commit();
+  fence_regs(acc);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0) mbar_arrive(&empty[s]);
+}
+
+// bf16 forward on a 128-row band in output tiles of kQBN columns, the f32
+// kernel's schedule: tm_x = x, tm_out / tm_tmp / tm_saved the layer
+// outputs read back, tm_w the weights [L, in, out]; b = the biases [L, d].
 __global__ void __launch_bounds__(kHThreads, 1)
-k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
-               const __grid_constant__ CUtensorMap tm_out,
-               const __grid_constant__ CUtensorMap tm_tmp,
-               const __grid_constant__ CUtensorMap tm_saved,
-               const __grid_constant__ CUtensorMap tm_w,
-               const bf16* __restrict__ vec, bf16* out, bf16* tmp,
-               bf16* saved, int n, int d, int n_layers, int last_relu) {
+k1_bf16_fwd_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_out,
+                   const __grid_constant__ CUtensorMap tm_tmp,
+                   const __grid_constant__ CUtensorMap tm_saved,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const bf16* __restrict__ b, bf16* out, bf16* tmp,
+                   bf16* saved, int n, int d, int n_layers, int last_relu) {
   extern __shared__ unsigned char smem_raw[];
   const QRing ring = qring_init(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1073,14 +1109,10 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
           if (lane == 0) {
             mbar_expect_tx(&ring.full[s], kQStageBytes);
             tma_load(ring.a(s), tin, &ring.full[s], kt * kQBK, row0, slab);
-            if (kDgrad) {
-              tma_load(ring.b(s), &tm_w, &ring.full[s], kt * kQBK, c0, 0);
-            } else {
 #pragma unroll
-              for (int q = 0; q < kQBN / 64; ++q)
-                tma_load(ring.b(s) + q * kQBoxElems, &tm_w, &ring.full[s],
-                         c0 + 64 * q, kt * kQBK, layer);
-            }
+            for (int q = 0; q < kQBN / 64; ++q)
+              tma_load(ring.b(s) + q * kQBoxElems, &tm_w, &ring.full[s],
+                       c0 + 64 * q, kt * kQBK, layer);
           }
           __syncwarp();
         }
@@ -1096,8 +1128,7 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int layer = 0; layer < n_layers; ++layer) {
       const bool relu = layer < n_layers - 1 || last_relu;
       const int k = dst_kind(layer, n_layers, keep);
-      bf16* dst = kDgrad ? out
-                  : k == 0 ? out
+      bf16* dst = k == 0 ? out
                   : k == 1 ? tmp
                            : saved + (long long)layer * n * d;
       for (int c0 = 0; c0 < d; c0 += kQBN) {
@@ -1106,10 +1137,8 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % kQStages;
           mbar_wait(&ring.full[s], (it / kQStages) & 1);
-          const uint64_t da = smem_desc(ring.a(s) + wg * 64 * kQBK);
-          const uint64_t db =
-              kDgrad ? smem_desc(ring.b(s)) : smem_desc_mn(ring.b(s));
-          qstage<0, (kDgrad ? 0 : 1)>(ring, acc, it, da, db, kt == 0, lane);
+          qstage<0, 1>(ring, acc, it, smem_desc(ring.a(s) + wg * 64 * kQBK),
+                       smem_desc_mn(ring.b(s)), kt == 0, lane);
         }
         qdrain(ring, acc, it, lane);
 
@@ -1118,30 +1147,18 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
         for (int j = 0; j < kQBN / 8; ++j) {
           const int col = c0 + 8 * j + 2 * t;
-          float2 bias = make_float2(0.f, 0.f);
-          if (!kDgrad)
-            bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                vec + (long long)layer * d + col));
+          const float2 bias = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  b + (long long)layer * d + col));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const long long row = (long long)row0 + r_lo + 8 * h;
             if (row >= n) continue;
-            float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-            if (kDgrad) {
-              if (vec != nullptr) {
-                const float2 m = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(vec + row * d +
-                                                             col));
-                v0 *= m.x > 0.f ? 1.f : 0.f;
-                v1 *= m.y > 0.f ? 1.f : 0.f;
-              }
-            } else {
-              v0 += bias.x;
-              v1 += bias.y;
-              if (relu) {
-                v0 = fmaxf(v0, 0.f);
-                v1 = fmaxf(v1, 0.f);
-              }
+            float v0 = acc[4 * j + 2 * h] + bias.x;
+            float v1 = acc[4 * j + 2 * h + 1] + bias.y;
+            if (relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
             }
             store2(dst + row * d + col, v0, v1);
           }
@@ -1154,6 +1171,209 @@ k1_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     }
   }
 }
+
+// Bulk copies from shared memory back to device memory (TMA stores).
+// One [64, 64] box of a 3-D map at (c0, c1, c2) from shared memory; rows
+// past the map's end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's committed stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Until they have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------------------- bf16 dgrad (persistent)
+// See the note at the top. A block a SM walks the (band, column tile)
+// tiles b, b + gridDim.x, ..., in that order, so the blocks running at a
+// time share their bands' A rows in L2; a tile is 128 rows x kQBN
+// columns, K = d in stages of kQBK. The ring of kDStages stages runs on
+// across tiles. Each consumer warpgroup owns a 64 x 256 half of the tile
+// and its own half of the epilogue buffer: 4 [64 rows, 64 columns] boxes
+// in the 128-byte swizzle (32 KB), into which warp 9 loads the half's
+// mask tile by TMA ahead of the epilogue and from which it stores the
+// half's output by TMA.
+constexpr int kDStages = 3;
+constexpr uint32_t kDBox = 64 * 64 * 2;      // one [64, 64] box: 8 KB
+constexpr int kDBoxElems = kDBox / 2;
+constexpr uint32_t kDHalf = (kQBN / 64) * kDBox;  // 32 KB
+constexpr int kDBars = 2 * kDStages + 4;
+constexpr size_t kDSmem = (size_t)kDStages * kQStageBytes + 2 * kDHalf +
+                          kDBars * sizeof(uint64_t) + 1024;
+static_assert(kDSmem <= 232448, "dgrad's stages exceed 227 KB");
+
+// The stages, the two epilogue halves and the barriers of a dgrad block:
+// full / empty a stage; ready(h), a half's buffer free for the next
+// epilogue (and holding its mask); done(h), the half's outputs written.
+struct DRing {
+  unsigned char* base;  // 1024-byte aligned
+  __device__ bf16* a(int s) const {
+    return reinterpret_cast<bf16*>(base + s * kQStageBytes);
+  }
+  __device__ bf16* b(int s) const {
+    return reinterpret_cast<bf16*>(base + s * kQStageBytes + kQTileA);
+  }
+  __device__ bf16* e(int h) const {
+    return reinterpret_cast<bf16*>(base + kDStages * kQStageBytes +
+                                   h * kDHalf);
+  }
+  __device__ uint64_t* bars() const {
+    return reinterpret_cast<uint64_t*>(base + kDStages * kQStageBytes +
+                                       2 * kDHalf);
+  }
+  __device__ uint64_t* full(int s) const { return bars() + s; }
+  __device__ uint64_t* empty() const { return bars() + kDStages; }
+  __device__ uint64_t* ready(int h) const { return bars() + 2 * kDStages + h; }
+  __device__ uint64_t* done(int h) const {
+    return bars() + 2 * kDStages + 2 + h;
+  }
+};
+
+// out = bf16((dz W^T) * (mask > 0)) (kMask) or bf16(dz W^T): tm_dz = dz
+// [n, d] in [128, kQBK] boxes, tm_w = W [in, out] in K-major [kQBN, kQBK]
+// boxes, tm_mask / tm_out = the mask and out in [64, 64] boxes.
+template <bool kMask>
+__global__ void __launch_bounds__(kHThreads, 1)
+k1_bf16_dgrad_kernel(const __grid_constant__ CUtensorMap tm_dz,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_mask,
+                     const __grid_constant__ CUtensorMap tm_out, int n,
+                     int d) {
+  extern __shared__ unsigned char smem_raw[];
+  DRing ring;
+  ring.base = align1024(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty() + s, 8);  // lane 0 of each consumer warp
+    }
+    for (int h = 0; h < 2; ++h) {
+      mbar_init(ring.ready(h), 1);
+      mbar_init(ring.done(h), 128);  // every thread of the half's warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int ctiles = d / kQBN, ktiles = d / kQBK;
+  const int tiles = (n + kHBM - 1) / kHBM * ctiles;
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (lane != 0 || warp > 9) return;
+    if (warp == 8) {
+      // ---- producer: the stages of every tile, in order
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile / ctiles * kHBM, c0 = tile % ctiles * kQBN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kDStages;
+          mbar_wait(ring.empty() + s, ((it / kDStages) & 1) ^ 1);
+          mbar_expect_tx(ring.full(s), kQStageBytes);
+          tma_load(ring.a(s), &tm_dz, ring.full(s), kt * kQBK, row0, 0);
+          tma_load(ring.b(s), &tm_w, ring.full(s), kt * kQBK, c0, 0);
+        }
+      }
+      return;
+    }
+    // ---- warp 9: each half's output out by TMA once written, then the
+    // next tile's mask in (or the half marked free)
+    int tc = 0, prev_row0 = 0, prev_c0 = 0;
+    for (int tile = blockIdx.x;; tile += gridDim.x, ++tc) {
+      const bool more = tile < tiles;
+      const int row0 = tile / ctiles * kHBM, c0 = tile % ctiles * kQBN;
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        if (tc > 0) {
+          mbar_wait(ring.done(h), (tc - 1) & 1);
+          if (prev_row0 + 64 * h < n) {
+#pragma unroll
+            for (int q = 0; q < kQBN / 64; ++q)
+              tma_store(&tm_out, ring.e(h) + q * kDBoxElems, prev_c0 + 64 * q,
+                        prev_row0 + 64 * h, 0);
+            bulk_commit();
+            bulk_wait_read();
+          }
+        }
+        if (!more) continue;
+        if (kMask && row0 + 64 * h < n) {
+          mbar_expect_tx(ring.ready(h), kDHalf);
+#pragma unroll
+          for (int q = 0; q < kQBN / 64; ++q)
+            tma_load(ring.e(h) + q * kDBoxElems, &tm_mask, ring.ready(h),
+                     c0 + 64 * q, row0 + 64 * h, 0);
+        } else {
+          mbar_arrive(ring.ready(h));
+        }
+      }
+      if (!more) break;
+      prev_row0 = row0;
+      prev_c0 = c0;
+    }
+    bulk_wait();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = lane / 4, t = lane % 4;
+  const int r = (warp % 4) * 16 + g;  // row in the half; r % 8 == g
+  bf16* e = ring.e(wg);
+  float acc[kQBN / 2];
+  int it = 0, tc = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++tc) {
+#pragma unroll
+    for (int i = 0; i < kQBN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % kDStages;
+      mbar_wait(ring.full(s), (it / kDStages) & 1);
+      qstage_retire(ring.empty(), s, acc,
+                    smem_desc(ring.a(s) + wg * 64 * kQBK),
+                    smem_desc(ring.b(s)), lane);
+    }
+
+    // Epilogue into the half's buffer, where the mask landed. Fragment of
+    // n8 block j: rows r, r + 8; cols 8j + 2t, + 1 (acc[4j + 2h + e]); in
+    // the 128-byte swizzle (r, c) sits in box c / 64, row r, 16-byte chunk
+    // ((c % 64) / 8) ^ (r % 8): the 32 lanes of a warp on 32 banks.
+    mbar_wait(ring.ready(wg), tc & 1);
+#pragma unroll
+    for (int j = 0; j < kQBN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+            e + (j >> 3) * kDBoxElems + (r + 8 * h) * 64 +
+            ((((j & 7) ^ g) << 3) | (2 * t)));
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (kMask) {
+          const float2 m = __bfloat1622float2(*p);
+          v0 *= m.x > 0.f ? 1.f : 0.f;
+          v1 *= m.y > 0.f ? 1.f : 0.f;
+        }
+        *p = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    fence_proxy_async_shared();
+    mbar_arrive(ring.done(wg));
+  }
+}
+
+// ------------------------------------------------------------ bf16 wgrad
+constexpr int kQPromoteStages = 2048 / kQBK;   // wgrad: partial every 2,048
 
 // bf16 wgrad: split z of N (rows [z rows_per_split, + rows_per_split) of
 // act and dz): part_w[z] (+)= act^T dz on the block's 128 x kQBN tile (rows
@@ -1253,36 +1473,47 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <bool kDgrad>
-int launch_bf16(const void* in, const void* w, const void* vec, void* out,
-                void* tmp, void* saved, int n, int d, int n_layers,
-                int last_relu, cudaStream_t stream) {
+int launch_bf16_fwd(const void* x, const void* w, const void* b, void* out,
+                    void* tmp, void* saved, int n, int d, int n_layers,
+                    int last_relu, cudaStream_t stream) {
   if (n <= 0 || d <= 0 || d % kQBN != 0 || n_layers <= 0)
     return (int)cudaErrorInvalidValue;
-  if (!kDgrad && n_layers > 1 && tmp == nullptr && saved == nullptr)
+  if (n_layers > 1 && tmp == nullptr && saved == nullptr)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm[5] = {};
-  cudaError_t err = encode(&tm[0], in, d, n, 1, kHBM, true);
-  if (!kDgrad) {
-    if (err == cudaSuccess) err = encode(&tm[1], out, d, n, 1, kHBM, true);
-    if (err == cudaSuccess)
-      err = encode(&tm[2], tmp != nullptr ? tmp : out, d, n, 1, kHBM, true);
-    if (err == cudaSuccess)
-      err = encode(&tm[3], saved != nullptr ? saved : out, d, n,
-                   saved != nullptr ? n_layers - 1 : 1, kHBM, true);
-  }
-  // W [L, in, out]: the forward's MN-major boxes are [64 in, 64 out], the
-  // dgrad's K-major tile [kQBN in, 64 out]
+  cudaError_t err = encode(&tm[0], x, d, n, 1, kHBM, true);
+  if (err == cudaSuccess) err = encode(&tm[1], out, d, n, 1, kHBM, true);
   if (err == cudaSuccess)
-    err = encode(&tm[4], w, d, d, kDgrad ? 1 : n_layers,
-                 kDgrad ? kQBN : kQBK, true);
-  if (err == cudaSuccess) err = set_smem(k1_bf16_kernel<kDgrad>, kQSmem);
+    err = encode(&tm[2], tmp != nullptr ? tmp : out, d, n, 1, kHBM, true);
+  if (err == cudaSuccess)
+    err = encode(&tm[3], saved != nullptr ? saved : out, d, n,
+                 saved != nullptr ? n_layers - 1 : 1, kHBM, true);
+  // W [L, in, out] in MN-major boxes of [64 in, 64 out]
+  if (err == cudaSuccess) err = encode(&tm[4], w, d, d, n_layers, kQBK, true);
+  if (err == cudaSuccess) err = set_smem(k1_bf16_fwd_kernel, kQSmem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + kHBM - 1) / kHBM);
-  k1_bf16_kernel<kDgrad><<<grid, kHThreads, kQSmem, stream>>>(
-      tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<const bf16*>(vec),
+  k1_bf16_fwd_kernel<<<grid, kHThreads, kQSmem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], static_cast<const bf16*>(b),
       static_cast<bf16*>(out), static_cast<bf16*>(tmp),
       static_cast<bf16*>(saved), n, d, n_layers, last_relu);
+  return (int)cudaGetLastError();
+}
+
+// One block a SM (or a tile, if fewer), each walking its tiles.
+template <bool kMask>
+int launch_bf16_dgrad(const CUtensorMap (&tm)[4], int n, int d, int device,
+                      cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = set_smem(k1_bf16_dgrad_kernel<kMask>, kDSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((n + kHBM - 1) / kHBM) * (d / kQBN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  k1_bf16_dgrad_kernel<kMask><<<grid, kHThreads, kDSmem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], n, d);
   return (int)cudaGetLastError();
 }
 
@@ -1322,8 +1553,8 @@ int snerf_fused_mlp_fwd_bf16(const void* x, const void* w, const void* b,
                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_bf16<false>(x, w, b, out, tmp, saved, n, d, n_layers,
-                            last_relu, static_cast<cudaStream_t>(stream));
+  return launch_bf16_fwd(x, w, b, out, tmp, saved, n, d, n_layers, last_relu,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The 3xTF32 split of w [n_layers, d, d] (d a multiple of 32): big_t,
@@ -1404,14 +1635,25 @@ int snerf_fused_mlp_bwd_reduce(const void* part_w, const void* part_b,
 // The bf16 backward (wgmma on bf16 operands, no split).
 //
 // dgrad: out [n, d] = bf16((dz [n, d] W^T) * (mask [n, d] > 0)), W [d, d]
-// ([in, out]) bf16; mask may be null. out distinct from dz.
+// ([in, out]) bf16; mask may be null (no mask). out distinct from dz and
+// the mask.
 int snerf_fused_mlp_bwd_dgrad_bf16(const void* dz, const void* w,
                                    const void* mask, void* out, int n, int d,
                                    int device, void* stream) {
+  if (n <= 0 || d <= 0 || d % kQBN != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
+  // dz in [128, 64] boxes; W's K-major tile [kQBN in, 64 out]; the mask
+  // and out in the epilogue's [64, 64] boxes
+  CUtensorMap tm[4] = {};
+  if (err == cudaSuccess) err = encode(&tm[0], dz, d, n, 1, kHBM, true);
+  if (err == cudaSuccess) err = encode(&tm[1], w, d, d, 1, kQBN, true);
+  if (err == cudaSuccess && mask != nullptr)
+    err = encode(&tm[2], mask, d, n, 1, 64, true);
+  if (err == cudaSuccess) err = encode(&tm[3], out, d, n, 1, 64, true);
   if (err != cudaSuccess) return (int)err;
-  return launch_bf16<true>(dz, w, mask, out, nullptr, nullptr, n, d, 1, 0,
-                           static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mask != nullptr ? launch_bf16_dgrad<true>(tm, n, d, device, s)
+                         : launch_bf16_dgrad<false>(tm, n, d, device, s);
 }
 
 // wgrad: the f32 partials of dW = act^T dz and db = colsum(dz) over

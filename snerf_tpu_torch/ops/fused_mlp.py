@@ -360,9 +360,14 @@ def fused_mlp_bwd_wgrad(act, dz, part_w, part_b, rows_per_split):
 def fused_mlp_bwd_dgrad_bf16(dz, w, mask, out):
   """out = bf16((dz @ w.T) * (mask > 0)) on the card (no mask when mask is
   None): dz, mask, out [N, D] and w [D, D] ([in, out], as it lies)
-  bfloat16; f32 accumulation."""
+  bfloat16; f32 accumulation; out distinct from dz and the mask (one
+  persistent launch reads them while it stores out)."""
   _check_cuda("fused_mlp_bwd_dgrad_bf16", dz, w, out,
               *(() if mask is None else (mask,)))
+  if any(t is not None and t.data_ptr() == out.data_ptr()
+         for t in (dz, mask)):
+    raise ValueError("fused_mlp_bwd_dgrad_bf16: out must not be dz or the "
+                     "mask")
   n, d = dz.shape
   lib = _lib()
   err = lib.snerf_fused_mlp_bwd_dgrad_bf16(

@@ -1,23 +1,21 @@
-"""A/B of K1's bf16 backward kernels on the card: which schedule costs
-what, at the bf16 training paths' layer shapes.
+"""K1's bf16 backward kernels on the card against the bf16 PyTorch calls of
+the same functions, at the bf16 training paths' layer shapes.
 
-K1's bf16 dgrad and wgrad (`csrc/fused_mlp.cu`) run slower than one bf16
-`torch.matmul` of the same product. This probe times, by CUDA events in
-turns (A, B, B, A), variants that each move one suspect:
+Times, by CUDA events in turns (A, B, ..., B, A):
 
-- dgrad against dgrad without the ReLU mask (the mask read in the
-  epilogue), and the bf16 forward at one layer (the same product with the
-  weights MN-major, a bias and no mask);
-- wgrad at the shipped split of N (`wgrad_splits`: about 64 waves of
-  blocks, each split at least 2,048 rows) against 4, 16 and 32 waves,
-  and wgrad without its reduce;
-- beside each, the bf16 PyTorch call and the bound (bytes over 3.35 TB/s,
-  products over 989 TFLOP/s).
+- dgrad with its ReLU mask and without it (the dx launch), beside the
+  bare GEMM torch.matmul(dz, w.t()), the same GEMM times the mask (the
+  same function in PyTorch), and the GEMM's time plus the mask's bytes at
+  3.35 TB/s (what the mask may add to the GEMM);
+- wgrad + its fixed-order reduce, wgrad alone and the reduce alone,
+  beside act.t() @ dz, with the split (`wgrad_splits`) and the bytes of
+  its f32 partials;
+- beside each, the bound (bytes over 3.35 TB/s, products over 989
+  TFLOP/s).
 
-A change of split reorders wgrad's f32 sums: each variant is held to
-WGRAD_SPLIT_TOL of max|dW| and max|db| against the shipped split. Prints
-the card's name and power limit and one JSON line a shape; exits 1 if a
-check fails.
+Each kernel is held to its plain version (f32 sums of the same bf16
+inputs) at TOL of max|plain|. Prints the card's name and power limit and
+one JSON line a shape; exits 1 if a check fails.
 
   python -m snerf_tpu_torch.probes.k1_bf16
 """
@@ -41,9 +39,10 @@ SHAPES = (("cp_hash proposal layer", 2_097_152, 512),
           ("bench fine layer", 520_192, 1024),
           ("bench proposal layer", 524_288, 256))
 ITERS = 5
-# wgrad's partials are summed in another order when the split changes:
-# as a fraction of max|dW|
-WGRAD_SPLIT_TOL = 1e-5
+# against the plain version, as a fraction of max|plain|: dgrad's output
+# is rounded to bf16 once (one ulp is 2^-8 of it), wgrad's f32 sums of
+# bf16 products differ only in order
+TOL = {"dgrad": 2e-2, "dx": 2e-2, "wgrad": 1e-4}
 
 
 def _card() -> str:
@@ -81,6 +80,11 @@ def _bound(nbytes, flop):
   return max(nbytes / HBM_RATE, flop / BF16_MMA_RATE) * 1e3
 
 
+def _rel(got, want):
+  return float((got.double() - want.double()).abs().max()
+               / want.double().abs().max())
+
+
 def probe_shape(name, n, d, sm):
   gen = torch.Generator(device="cuda").manual_seed(n + d)
   bf16, f32 = torch.bfloat16, torch.float32
@@ -88,53 +92,52 @@ def probe_shape(name, n, d, sm):
   act = torch.relu(torch.randn(n, d, generator=gen, device="cuda")).to(bf16)
   w = ((torch.rand(d, d, generator=gen, device="cuda") * 2 - 1)
        * 0.05).to(bf16)
-  b = ((torch.rand(1, 1, d, generator=gen, device="cuda") * 2 - 1)
-       * 0.05).to(bf16)
   out = torch.empty_like(dz)
-  wl = w[None]
+  rows, splits = fm.wgrad_splits(n, d, sm, bf16)
+  pw = torch.empty(splits, d, d, dtype=f32, device="cuda")
+  pb = torch.empty(splits, d, dtype=f32, device="cuda")
+  dw = torch.empty(d, d, dtype=f32, device="cuda")
+  db = torch.empty(d, dtype=f32, device="cuda")
+
+  def wgrad(reduce=True):
+    fm.fused_mlp_bwd_wgrad_bf16(act, dz, pw, pb, rows)
+    if reduce:
+      fm.fused_mlp_bwd_reduce(pw, pb, dw, db)
+
+  # the checks against the plain versions
+  prod = dz.float() @ w.float().t()
+  errs = {"dgrad": _rel(fm.fused_mlp_bwd_dgrad_bf16(dz, w, act, out),
+                        (prod * (act > 0)).to(bf16)),
+          "dx": _rel(fm.fused_mlp_bwd_dgrad_bf16(dz, w, None, out),
+                     prod.to(bf16))}
+  del prod
+  wgrad()
+  errs["wgrad"] = max(_rel(dw, act.float().t() @ dz.float()),
+                      _rel(db, dz.float().sum(0)))
+  torch.cuda.synchronize()
+
   dgrad_ms = _ab({
       "dgrad": lambda: fm.fused_mlp_bwd_dgrad_bf16(dz, w, act, out),
       "dgrad, no mask": lambda: fm.fused_mlp_bwd_dgrad_bf16(dz, w, None, out),
-      "forward, one layer": lambda: fm.fused_mlp_fwd_bf16(
-          act, wl, b, out, None, None, True),
-      "library": lambda: torch.matmul(dz, w.t())})
-
-  def wgrad_fn(waves):
-    rows, splits = fm.wgrad_splits(n, d, sm, bf16, waves)
-    pw = torch.empty(splits, d, d, dtype=f32, device="cuda")
-    pb = torch.empty(splits, d, dtype=f32, device="cuda")
-    dw = torch.empty(d, d, dtype=f32, device="cuda")
-    db = torch.empty(d, dtype=f32, device="cuda")
-
-    def run(reduce=True):
-      fm.fused_mlp_bwd_wgrad_bf16(act, dz, pw, pb, rows)
-      if reduce:
-        fm.fused_mlp_bwd_reduce(pw, pb, dw, db)
-      return dw, db
-    return run, splits
-
-  runs = {"shipped": wgrad_fn(0)}
-  runs.update({f"{v} waves": wgrad_fn(v) for v in (4, 16, 32)})
-  ref = [t.clone() for t in runs["shipped"][0]()]
-  wgrad_err = {}
-  for k, (run, _) in runs.items():
-    got = run()
-    wgrad_err[k] = max(float((g - r).abs().max()) / float(r.abs().max())
-                       for g, r in zip(got, ref))
-  wgrad = {f"{k} ({s} splits)": run for k, (run, s) in runs.items()}
-  wgrad["shipped, no reduce"] = lambda: runs["shipped"][0](False)
-  wgrad["library"] = lambda: act.t() @ dz
-  wgrad_ms = _ab(wgrad)
-
+      "library GEMM": lambda: torch.matmul(dz, w.t()),
+      "library GEMM * mask": lambda: torch.matmul(dz, w.t()) * (act > 0)})
+  wgrad_ms = _ab({
+      "wgrad + reduce": wgrad,
+      "wgrad alone": lambda: wgrad(False),
+      "reduce alone": lambda: fm.fused_mlp_bwd_reduce(pw, pb, dw, db),
+      "library": lambda: act.t() @ dz})
   flop = 2.0 * n * d * d
+  mask_ms = n * d * 2 / HBM_RATE * 1e3
   res = dict(
-      shape=name, n=n, d=d,
-      dgrad_ms=dgrad_ms, dgrad_bound_ms=_bound((3 * n * d + d * d) * 2, flop),
-      fwd_bound_ms=_bound((2 * n * d + d * d + d) * 2, flop),
-      wgrad_ms=wgrad_ms,
-      wgrad_bound_ms=_bound(2 * n * d * 2 + (d * d + d) * 4, flop),
-      wgrad_err_vs_shipped=wgrad_err)
-  del dz, act, w, out, runs
+      shape=name, n=n, d=d, errs=errs, dgrad_ms=dgrad_ms,
+      dgrad_yardstick_ms=dgrad_ms["library GEMM"] + mask_ms,
+      dgrad_bound_ms=_bound((3 * n * d + d * d) * 2, flop),
+      dx_bound_ms=_bound((2 * n * d + d * d) * 2, flop),
+      wgrad_ms=wgrad_ms, splits=splits, rows_per_split=rows,
+      partial_bytes=(pw.numel() + pb.numel()) * 4,
+      reduce_share=wgrad_ms["reduce alone"] / wgrad_ms["wgrad + reduce"],
+      wgrad_bound_ms=_bound(2 * n * d * 2 + (d * d + d) * 4, flop))
+  del dz, act, w, out, pw, pb, dw, db
   torch.cuda.empty_cache()
   return res
 
@@ -151,7 +154,7 @@ def main() -> int:
     r = probe_shape(name, n, d, sm)
     r["card"] = card
     print(json.dumps(r), flush=True)
-    ok &= max(r["wgrad_err_vs_shipped"].values()) <= WGRAD_SPLIT_TOL
+    ok &= all(r["errs"][k] <= TOL[k] for k in TOL)
   print(json.dumps({"ok": ok}))
   return 0 if ok else 1
 

@@ -163,14 +163,19 @@ def test_wgrad_splits(n, d, want):
     (4064 * 128, 1024, (2048, 254)),  # bench fine: 8 x 4 tiles
     (4096 * 128, 256, (2048, 256)),  # bench proposal: one 256-wide column
     (777, 256, (832, 1)),            # small: one split
+    (65573, 512, (2048, 33)),        # ragged: the last split 37 rows
 ])
 def test_wgrad_splits_bf16(n, d, want):
   """The bf16 wgrad's split: 64-row k-stages and 128 x 256 tiles, about 64
   waves of one block per SM, each split at least 2,048 rows unless N is
-  shorter."""
+  shorter; the splits cover every row once, in order."""
   rows, splits = wgrad_splits(n, d, 132, torch.bfloat16)
   assert (rows, splits) == want
   assert rows % 64 == 0 and splits * rows >= n > (splits - 1) * rows
+  covered = torch.zeros(n, dtype=torch.int32)
+  for s in range(splits):
+    covered[s * rows:min(n, (s + 1) * rows)] += 1
+  assert bool((covered == 1).all())
 
 
 def _bits(*patterns):
