@@ -1,0 +1,9 @@
+"""The fused hash encode's share of its roofline in a render: the bound of its
+forward at the rows a chunk's positions touch (counts/zip.py; counted on one
+more chunk after the traced window) over the device time of its kernels, %."""
+
+from bench_port import readers
+
+
+def read(reading, work):
+  return readers.roofline(work, "hash_encode_s", reading, "hash_encode")
