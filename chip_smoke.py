@@ -155,18 +155,30 @@ Phases, each fatal on failure:
        2,048) on uniform positions and on the positions and output
        gradient captured in one f32 cp_hash step (--zip_compute_dtype
        float32), its launches counted: forward bit-equal, table gradient
-       within SCATTER_TOL of an f64 control beside a fault reading; one
-       f32 cp_hash step under torch.profiler (K1, the encode, the CP
-       encode's profiles and matmuls, the other GEMMs, idle);
+       within SCATTER_TOL of an f64 control beside a fault reading; the
+       CP level encode's kernel 10 forwards and 10 table gradients a
+       step; one f32 cp_hash step under torch.profiler (K1, the encode,
+       the CP encode, the other GEMMs, idle);
      10c. cli.train with the config as shipped (bf16 MLPs) but
        --zip_lr_delay 0 on the Waymo-layout copy of the fixture, 2 + 10
        steps at the shipped batch: s/step, peak memory, K1's bf16
        forward 12 times (6 runs, each recomputed by the trunk checkpoint)
        and its bf16 dgrad, wgrad and the reduce 21 times a step, no f32
-       K1, the encode 1 + 1, K2 never; a falling loss and EMA weights
-       apart from the raw ones; cli.eval of the 42 train views in float32
-       (6 f32 K1 forwards and 1 encode a chunk) and a 2-pose random
-       cli.render, both from the EMA weights;
+       K1, the encode 1 + 1, the CP encode 10 + 10, K2 never; a falling
+       loss and EMA weights apart from the raw ones; cli.eval of the 42
+       train views in float32 (6 f32 K1 forwards, 1 encode and 10 CP
+       encode forwards a chunk) and a 2-pose random cli.render, both from
+       the EMA weights;
+     10d. the CP level encode's kernel (csrc/cp_encode.cu) at the three
+       CP grids, on the levels captured in one bf16 cp_hash step (its 10
+       forwards and 10 table gradients counted): forward and table
+       gradient in bf16 at the step's rows, the forward in float32 at a
+       render chunk's (the first quarter of them), then both on dense
+       rows (every node inside every window), against the model's plain
+       path within CP_TOL of max|plain| per level beside a fault reading
+       (positions one node off) that must exceed it; CUDA-event times in
+       turns with the plain path, and the bound both ways (products or
+       bytes, and the SFU's exps);
  11. the bf16 trunks (configs/waymo_zipnerf and waymo_zipnerf_tpu as
      shipped, bench.py's mip model):
      11a. K1's bf16 kernels at the training paths' shapes (a cp_hash
@@ -201,8 +213,9 @@ the survey for the probes and for K2's gather and scatter-add, which no
 path runs since the fused encode; then K1 at D = 512 with the counts of
 9d's mip cell and the fused encode at the zip_hash shapes with those of
 9a's step, then K1 at the cp_hash trunks and the encode at the cp_hash
-fine level with the counts of 10c's training run, each named with its
-shape), its time at the path's
+fine level with the counts of 10c's training run, then the CP level
+encode at each CP grid with those of 10d's step (train) and of 10c's
+cli.eval (render), each named with its shape), its time at the path's
 shapes beside its plain version's, its bound (the larger of its bytes
 over HBM_RATE and its operations over their peak rate) and the time of
 one PyTorch call computing the same function, where there is one.
@@ -2065,6 +2078,7 @@ ENCODE_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "hash_gather",
 def launch_counters():
   """{name: wrapper} of every kernel wrapper of the entry points' paths;
   each wrapper counts its launches in `.launches`."""
+  from snerf_tpu_torch.ops import cp_encode as ce
   from snerf_tpu_torch.ops import fused_mlp as fm
   from snerf_tpu_torch.ops import hash_encode as he
   from snerf_tpu_torch.ops import hash_ops
@@ -2078,7 +2092,8 @@ def launch_counters():
           "hash_encode_fwd": he.hash_encode_fwd,
           "hash_encode_bwd": he.hash_encode_bwd,
           "hash_gather": hash_ops.gather_rows,
-          "hash_scatter_add": hash_ops.scatter_add_rows}
+          "hash_scatter_add": hash_ops.scatter_add_rows,
+          "cp_encode_fwd": ce.encode_fwd, "cp_encode_bwd": ce.encode_bwd}
 
 
 def counted(fn):
@@ -2646,6 +2661,9 @@ TPU_PROP_ROWS, TPU_NERF_ROWS = 32768 * 64, 32768 * 32
 # fine level, one forward and one backward a step.
 TPU_K1_RUNS = 6
 TPU_K1_BWD_PER_STEP = 21
+# The CP level encode's kernel a step or a render chunk: one forward and
+# one table gradient a level, 3 + 3 proposal levels and 4 nerf levels
+CP_LEVELS = 10
 TPU_TRAIN_WARMUP, TPU_TRAIN_STEPS = 2, 10
 # K1 a bf16 cp_hash step (the shipped compute dtype): the same counts on
 # the bf16 kernels, which need no weight split, and no f32 launch
@@ -2654,7 +2672,8 @@ TPU_BF16_STEP = {"fused_mlp": 0, "tf32_split": 0, "fused_mlp_bwd_dgrad": 0,
                  "fused_mlp_fwd_bf16": 2 * TPU_K1_RUNS,
                  "fused_mlp_bwd_dgrad_bf16": TPU_K1_BWD_PER_STEP,
                  "fused_mlp_bwd_wgrad_bf16": TPU_K1_BWD_PER_STEP,
-                 "fused_mlp_bwd_reduce": TPU_K1_BWD_PER_STEP}
+                 "fused_mlp_bwd_reduce": TPU_K1_BWD_PER_STEP,
+                 "cp_encode_fwd": CP_LEVELS, "cp_encode_bwd": CP_LEVELS}
 
 
 def tpu_shapes_phase(torch):
@@ -2692,8 +2711,8 @@ def tpu_shapes_phase(torch):
 def profile_cp_step(torch, step_fn):
   """Device time of one cp_hash train step under torch.profiler, by what
   runs it: K1 (forward and its recompute, tf32_split, dgrad, wgrad +
-  reduce), the fused encode, the CP encode (its profiles and matmuls, in
-  the forward and in its backward's recompute), the other cuBLAS GEMMs
+  reduce), the fused encode, the CP encode (its kernel's launches, or on
+  the plain path its profiles and matmuls), the other cuBLAS GEMMs
   (the trunks' wider layers, the view branch), Adam and the rest; with
   the idle share against the host clock. The CP encode is what runs
   under the program's "snerf.encode.cp" spans and `_LevelEncode`'s
@@ -2721,7 +2740,7 @@ def profile_cp_step(torch, step_fn):
     gemm = "gemm" in kernel.lower() or "gemv" in kernel.lower()
     while e is not None:
       if e.name == "snerf.encode.cp" or "_LevelEncode" in e.name:
-        return "CP encode (profiles and matmuls)"
+        return "CP encode"
       if e.name.startswith("Optimizer.step"):
         return "Adam"
       e = e.cpu_parent
@@ -2731,7 +2750,7 @@ def profile_cp_step(torch, step_fn):
   out = {k: 0.0 for k in ("K1 forward", "K1 tf32_split", "K1 dgrad",
                           "K1 wgrad + reduce", "fused encode forward",
                           "fused encode backward",
-                          "CP encode (profiles and matmuls)",
+                          "CP encode",
                           "other matmul (cuBLAS)", "Adam", "the rest")}
   busy, by_name = 0.0, {}
   for e in events:
@@ -2798,6 +2817,9 @@ def tpu_encode_phase(torch, scene):
         and counts["fused_mlp_bwd_wgrad"] == TPU_K1_BWD_PER_STEP
         and counts["fused_mlp_fwd_bf16"] == 0,
         f"the f32 cp_hash step's K1 launches {counts}")
+  check(counts["cp_encode_fwd"] == counts["cp_encode_bwd"] == CP_LEVELS,
+        f"the f32 cp_hash step's CP encode launches {counts}, expected "
+        f"{CP_LEVELS} forwards and {CP_LEVELS} table gradients")
   prof = profile_cp_step(torch, lambda: step(state, gen))
   del state, step
   torch.cuda.empty_cache()
@@ -2903,9 +2925,12 @@ def tpu_cli_phase(torch, base, card):
             for k in ("psnr", "ssim")), "non-finite cp_hash eval metrics")
   check(c_eval["fused_mlp"] == TPU_K1_RUNS * chunks
         and c_eval["hash_encode_fwd"] == chunks
+        and c_eval["cp_encode_fwd"] == CP_LEVELS * chunks
+        and c_eval["cp_encode_bwd"] == 0
         and c_eval["hash_gather"] == 0,
-        f"cli.eval's cp_hash launches {c_eval}, expected {TPU_K1_RUNS} K1 "
-        f"and 1 encode a chunk over {chunks} chunks")
+        f"cli.eval's cp_hash launches {c_eval}, expected {TPU_K1_RUNS} K1, "
+        f"1 fused encode and {CP_LEVELS} CP encode forwards a chunk over "
+        f"{chunks} chunks")
   out, c_render = counted(lambda: cli_render.main(
       common + ["--render_mode", "random", "--render_n", "2"]))
   _expect_files([os.path.join(out, f) for f in (
@@ -2915,10 +2940,238 @@ def tpu_cli_phase(torch, base, card):
   log(f"  cli.render --render_mode random --render_n 2 (EMA weights): "
       f"{os.path.relpath(out, ROOT)}, poses {poses.shape}; launches "
       f"{c_render}")
-  check(c_render["fused_mlp"] > 0 and c_render["hash_encode_fwd"] > 0,
+  check(c_render["fused_mlp"] > 0 and c_render["hash_encode_fwd"] > 0
+        and c_render["cp_encode_fwd"] == CP_LEVELS
+        * c_render["hash_encode_fwd"] and c_render["cp_encode_bwd"] == 0,
         f"cli.render's cp_hash launches {c_render}")
   return dict(train=c_train, eval=c_eval, render=c_render, step_s=step_s,
               peak=peak, losses=losses, summary=summary)
+
+
+# 10d: the CP level encode's kernel (csrc/cp_encode.cu) against the plain
+# path at the cp_hash config's CP grids, on the rows of one bf16 cp_hash
+# step: each of its CP_LEVELS levels (the proposal MLPs' 3 + 3 at
+# 2,097,152 rows, F 8; the nerf MLP's 4 at 1,048,576 rows, F 64) with the
+# positions, table and output gradient the step handed its table
+# gradient. The train grids in bf16 (forward and table gradient); the
+# render chunk's in float32 (forward), on the first quarter of the step's
+# rows (8,192 of its 32,768 rays, a chunk's). Then each grid on "dense"
+# rows (stds of half the grid, every node inside every row's window: the
+# kernel's most work). The plain path is the model's own: `_encode_chunked`
+# and `_LevelEncode`'s chunked backward under autograd. Each level reads
+# max |kernel - plain| over max |plain| per tensor; on the step's rows
+# beside a fault, the plain path on positions one node off, which must
+# read above the limit. A dense row's profile spans half the grid, so a
+# node's shift moves its features by less than the bf16 limit (it read
+# 1.5e-2 to 1.9e-2 at the first proposal grid on an H100): there the
+# gaps are held and no fault is read.
+# The limits are tests/test_torch_cp_encode.py's TOL: float32 (3xTF32
+# against cuBLAS's float32, ex2.approx against expf) and bf16 (a profile
+# entry or a product rounding to the other bf16 neighbour, a few bf16 ulps).
+CP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (grid, resolutions) in the order the step encodes its levels
+CP_GRIDS = (("proposal 0", (128, 256, 512)),
+            ("proposal 1", (128, 362, 1024)),
+            ("nerf", (128, 256, 512, 1024)))
+# the SFU's ex2 a clock on the whole card: 16 an SM x 132 SMs
+SFU_EXP_RATE = 132 * 16
+
+
+def capture_cp_levels(torch, fn):
+  """fn() with the CP kernel's entry points recording each level's table
+  gradient's inputs (u, var, table, F, g, dtype), cloned; returns them in
+  the order of the forwards (a table gradient is matched to the forward
+  whose u it was given)."""
+  from snerf_tpu_torch.ops import cp_encode as ce
+
+  fwd, bwd = ce.encode_fwd, ce.encode_bwd
+  order, seen = [], []
+
+  def rec_fwd(u, var, table, nf, dtype):
+    order.append(u.clone())
+    return fwd(u, var, table, nf, dtype)
+
+  def rec_bwd(u, var, table, nf, g, dtype):
+    seen.append((u.clone(), var.clone(), table.clone(), nf, g.clone(),
+                 dtype))
+    return bwd(u, var, table, nf, g, dtype)
+
+  rec_fwd.launches = rec_bwd.launches = 0   # the entry points count here
+  ce.encode_fwd, ce.encode_bwd = rec_fwd, rec_bwd
+  try:
+    fn()
+  finally:
+    ce.encode_fwd, ce.encode_bwd = fwd, bwd
+  levels = [next((lv for lv in seen if lv[0].shape == u.shape
+                  and torch.equal(lv[0], u)), None) for u in order]
+  return [lv for lv in levels if lv is not None]
+
+
+def _cp_gap(a, b):
+  return float((a.float() - b.float()).abs().max()) / float(
+      b.float().abs().max())
+
+
+def cp_grid_case(torch, name, levels, train, clock, fault=True, iters=3):
+  """One CP grid's levels [(u, var, table, F, g, dtype)] by the kernel
+  (`encode_fwd`, its table layout included; `encode_bwd`) and by the plain
+  path: ms summed over the levels, by CUDA events in turns (plain,
+  kernel, kernel, plain); the bound both ways, max(products / peak, bytes
+  / HBM_RATE) and the SFU's, one ex2 for each node inside a row's window
+  at the card's top clock; each level's gap to the plain path (with
+  fault, beside the fault's), forward and (train) table gradient."""
+  from snerf_tpu_torch.models import cpgrid
+  from snerf_tpu_torch.ops import cp_encode as ce
+
+  ms = dict.fromkeys(("ms", "plain_ms", "bwd_ms", "bwd_plain_ms"), 0.0)
+  gaps = {"fwd": [], "fwd_fault": [], "bwd": [], "bwd_fault": []}
+  terms = dense = flops = bytes_f = bytes_b = 0.0
+  dtype = levels[0][-1]
+  for u, var, table, nf, g, _ in levels:
+    m, n = u.shape[:2]
+    r, ft = table.shape[1:]
+    vb, pb = table[..., :nf], (table[..., nf:] if ft > nf else None)
+
+    def kernel_fwd():
+      return ce.encode_fwd(u, var, table, nf, dtype)
+
+    def kernel_bwd():
+      return ce.encode_bwd(u, var, table, nf, g, dtype)
+
+    def plain_fwd(uu=u):
+      return cpgrid._encode_chunked(uu, var, vb, pb, r, 0.0, dtype)
+
+    def plain_fwd_bwd(uu=u):
+      vg = vb.float().requires_grad_(True)
+      pg = None if pb is None else pb.float().requires_grad_(True)
+      cpgrid._LevelEncode.apply(uu, var, vg, pg, r, 0.0, dtype,
+                                False).backward(g)
+      return vg.grad if pg is None else torch.cat([vg.grad, pg.grad], -1)
+
+    order = [("plain_ms", plain_fwd), ("ms", kernel_fwd)]
+    if train:
+      order += [("bwd_plain_ms", plain_fwd_bwd), ("bwd_ms", kernel_bwd)]
+    for label, fn in order + order[::-1]:
+      fn()
+      ms[label] += time_ms(torch, fn, iters) / 2
+    got = kernel_fwd()
+    want = plain_fwd()
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{name}: the kernel's features {got.dtype} {tuple(got.shape)}")
+    gaps["fwd"].append(_cp_gap(got, want))
+    if fault:
+      gaps["fwd_fault"].append(_cp_gap(got, plain_fwd(u + 1)))
+    if train:
+      got, want = kernel_bwd(), plain_fwd_bwd()
+      gaps["bwd"].append(_cp_gap(got, want))
+      if fault:
+        gaps["bwd_fault"].append(_cp_gap(got, plain_fwd_bwd(u + 1)))
+    del want, got
+    h = torch.sqrt(ce.WINDOW * var)
+    lo = torch.clamp(torch.ceil(u - h), min=0)
+    hi = torch.clamp(torch.floor(u + h), max=r - 1)
+    e = float(torch.clamp(hi - lo + 1, min=0).sum())
+    terms += e
+    dense += m * n * 3 * r
+    flops += 2 * e * ft
+    elem = table.element_size()
+    io = m * n * 3 * 4 * 2 + 3 * r * ft * elem + m * (3 * ft - 2 * nf) * elem
+    bytes_f += io
+    bytes_b += io + 3 * r * ft * 4
+  rate = BF16_MMA_RATE if dtype == torch.bfloat16 else F32_MMA_RATE
+  out = dict(ms, levels=len(levels), rows=int(levels[0][0].shape[0]),
+             R=[int(lv[2].shape[1]) for lv in levels],
+             dtype=str(dtype)[6:], terms=terms, dense_terms=dense,
+             sfu_bound_ms=terms / (SFU_EXP_RATE * clock) * 1e3,
+             err=max(gaps["fwd"]), fault=min(gaps["fwd_fault"], default=None))
+  out["bound_ms"], out["bound_by"] = bound_ms(bytes_f, flops, rate)
+  tol = CP_TOL[out["dtype"]]
+  log(f"  {name}: {out['levels']} levels, R {out['R']}, {out['rows']:,} "
+      f"rows, {out['dtype']}: forward {ms['ms']:.3f} ms (plain "
+      f"{ms['plain_ms']:.3f}; bound {out['bound_ms']:.4f} by "
+      f"{out['bound_by']}, SFU {out['sfu_bound_ms']:.4f}; {terms:.4g} of "
+      f"{dense:.4g} terms inside the windows), gap {out['err']:.3e} (fault "
+      f"{out['fault']}, tol {tol})")
+  check(out["err"] <= tol and (not fault or tol < out["fault"]),
+        f"{name}: the CP forward's gaps {gaps['fwd']} (faults "
+        f"{gaps['fwd_fault']}, tol {tol})")
+  if train:
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound_ms(bytes_b, 2 * flops,
+                                                        rate)
+    out.update(bwd_err=max(gaps["bwd"]),
+               bwd_fault=min(gaps["bwd_fault"], default=None))
+    log(f"    table gradient {ms['bwd_ms']:.3f} ms (plain "
+        f"{ms['bwd_plain_ms'] - ms['plain_ms']:.3f} after its forward; "
+        f"bound {out['bwd_bound_ms']:.4f} by {out['bwd_bound_by']}, SFU "
+        f"{out['sfu_bound_ms']:.4f}), gap {out['bwd_err']:.3e} (fault "
+        f"{out['bwd_fault']}, tol {tol})")
+    check(out["bwd_err"] <= tol and (not fault or tol < out["bwd_fault"]),
+          f"{name}: the CP table gradient's gaps {gaps['bwd']} (faults "
+          f"{gaps['bwd_fault']}, tol {tol})")
+    # the plain backward's time is its recompute and gradients alone
+    out["bwd_plain_ms"] -= out["plain_ms"]
+  return out
+
+
+def cp_encode_phase(torch, scene, card):
+  """10d: the launches of one bf16 cp_hash step (CP_LEVELS forwards and
+  table gradients), the levels of the next captured, then `cp_grid_case`
+  at each grid on the step's rows and on dense rows, train (bf16) and
+  render (float32). Returns {(grid, rows, "train" or "render"): case} and
+  the step's launches."""
+  *_, state, step = zip_train_setup(torch, scene, config=TPU_CONFIG,
+                                    shipped_dtype=True)
+  gen = torch.Generator(device="cuda").manual_seed(2)
+  step(state, gen)
+  _, counts = counted(lambda: step(state, gen))
+  log(f"[kernel] the CP level encode at the cp_hash grids; launches of one "
+      f"bf16 cp_hash step: {counts['cp_encode_fwd']} forwards, "
+      f"{counts['cp_encode_bwd']} table gradients | {card}")
+  check(counts["cp_encode_fwd"] == counts["cp_encode_bwd"] == CP_LEVELS,
+        f"the bf16 cp_hash step's CP encode launches {counts}")
+  levels = capture_cp_levels(torch, lambda: step(state, gen))
+  del state, step
+  torch.cuda.empty_cache()
+  got = [(int(lv[0].shape[0]), lv[3], int(lv[2].shape[1]), lv[-1])
+         for lv in levels]
+  want = [(TPU_PROP_ROWS, 8, r, torch.bfloat16) for r in CP_GRIDS[0][1]
+          + CP_GRIDS[1][1]]
+  want += [(TPU_NERF_ROWS, 64, r, torch.bfloat16) for r in CP_GRIDS[2][1]]
+  check(got == want, f"the step's CP levels (rows, F, R, dtype): {got}, "
+        f"expected {want}")
+  out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+  check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+  clock = float(out.stdout.strip().splitlines()[0]) * 1e6
+  log(f"  top SM clock {clock / 1e6:.0f} MHz")
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  results, start = {}, 0
+  for grid, res in CP_GRIDS:
+    grid_levels = levels[start:start + len(res)]
+    start += len(res)
+    m = grid_levels[0][0].shape[0]
+    x01 = torch.rand(grid_levels[0][0].shape, device="cuda", generator=gen)
+    for rows in ("step", "dense"):
+      for use in ("train", "render"):
+        case = []
+        for u, var, table, nf, g, dtype in grid_levels:
+          r = table.shape[1]
+          if rows == "dense":
+            u = (x01 * (r - 1.0)).contiguous()
+            var = torch.full_like(u, (0.5 * (r - 1.0)) ** 2 + 0.75 ** 2)
+          if use == "render":
+            u, var = u[:m // 4].contiguous(), var[:m // 4].contiguous()
+            table, g, dtype = table.float(), None, torch.float32
+          case.append((u, var, table, nf, g, dtype))
+        results[(grid, rows, use)] = cp_grid_case(
+            torch, f"cp_hash {grid}, {use}, {rows} rows", case,
+            use == "train", clock, fault=rows == "step")
+        del case
+        torch.cuda.empty_cache()
+  del levels
+  torch.cuda.empty_cache()
+  return dict(cases=results, counts=counts)
 
 
 # Phase 11: the bf16 trunks. K1's bf16 kernels at the shapes of the bf16
@@ -3248,10 +3501,12 @@ def bf16_step_phase(torch, scene, card, config, compare_plain):
   check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
   if config == TPU_CONFIG:
     want = {k: counts[k] for k in TPU_BF16_STEP}
-    check(want == TPU_BF16_STEP, f"bf16 cp_hash K1 launches {want}, "
-          f"expected {TPU_BF16_STEP}")
+    check(want == TPU_BF16_STEP, f"bf16 cp_hash K1 and CP encode launches "
+          f"{want}, expected {TPU_BF16_STEP}")
   else:
-    check(sum(counts[k] for k in K1_KERNELS + ("fused_mlp_fwd_bf16",)) == 0
+    check(sum(counts[k] for k in K1_KERNELS + ("fused_mlp_fwd_bf16",
+                                                "cp_encode_fwd",
+                                                "cp_encode_bwd")) == 0
           and counts["hash_encode_fwd"] == ENCODE_PER_MLP,
           f"the bf16 hash step's launches {counts}")
   prof = (profile_cp_step(torch, lambda: step(state, gen))
@@ -3686,6 +3941,8 @@ def main() -> int:
   phase_done("10b cp_hash fine level")
   tpu = tpu_cli_phase(torch, base, card)
   phase_done("10c cp_hash CLI")
+  cp = cp_encode_phase(torch, scene, card)
+  phase_done("10d CP level encode")
 
   # 11. the bf16 trunks: K1's bf16 kernels at the bf16 paths' shapes,
   # one bf16 step of each shipped zip config, the bench line
@@ -3881,6 +4138,34 @@ def main() -> int:
                         name=f"{name} (cp_hash fine level, L 1, 2^19 rows)",
                         path=tpu_path,
                         jax_source="snerf_tpu/models/hashgrid.py:116"))
+  # phase 10d: the CP level encode at each cp_hash grid on the step's
+  # rows, with the launches of one bf16 cp_hash step (the train grids) and
+  # of 10c's cli.eval (the render grids); its JAX source is the module's
+  # level encode in XLA, no Pallas kernel
+  for (grid, rows, use), r in cp["cases"].items():
+    if rows != "step":
+      continue
+    label = (f"cp_hash {grid}, {r['levels']} levels, {r['rows']:,} rows, "
+             f"{r['dtype']}")
+    path, launches = (("one bf16 cp_hash step (phase 10d)", cp["counts"])
+                      if use == "train" else
+                      ("cli.eval of configs/waymo_zipnerf_tpu (phase 10c)",
+                       tpu["eval"]))
+    dense = cp["cases"][(grid, "dense", use)]
+    for name, key in (("cp_encode_fwd", ""), ("cp_encode_bwd", "bwd_")):
+      if key and use != "train":
+        continue
+      e = {"ms": r[f"{key}ms"], "plain_ms": r[f"{key}plain_ms"],
+           "bound_ms": r[f"{key}bound_ms"], "bound_by": r[f"{key}bound_by"]}
+      kernels.append(dict(entry(
+          name, "cp_encode.cu", "snerf_tpu/models/cpgrid.py:159",
+          launches[name], r[f"{key}err"], e, library=False),
+          name=f"{name} ({label})", path=path,
+          sfu_bound_ms=r["sfu_bound_ms"], fault_err=r[f"{key}fault"],
+          dense_ms=dense[f"{key}ms"], dense_plain_ms=dense[f"{key}plain_ms"],
+          dense_bound_ms=dense[f"{key}bound_ms"],
+          dense_bound_by=dense[f"{key}bound_by"],
+          dense_sfu_bound_ms=dense["sfu_bound_ms"]))
   # phase 11: K1's bf16 kernels, at the cp_hash trunks with the launches
   # of one bf16 cp_hash step (11b), at bench.py's shapes with those of the
   # bench line's run (11c, 32 steps)

@@ -6,19 +6,29 @@ N(u, s^2) (grid units, per axis) reads the expected Gaussian-RBF
 interpolation weights w_a = exp(-(u - i)^2 / (2 (sigma_b^2 + s_a^2)))
 normalised over the nodes i, and the level's feature is the rank-F CP
 product prod_a (w_a @ V_a^l). Both directions are [rows, R] x [R, F]
-matmuls over the dense profile (cuBLAS; the JAX module runs them in XLA
-outside any Pallas kernel), no gather and no scatter. In a bf16 compute
-dtype the profile is built in float32 and cast, and both matmuls, the
-products, the level window and the features are bf16, as the JAX
-module's `compute_dtype` makes them.
+matmuls over the profile (the JAX module runs them in XLA outside any
+Pallas kernel), no gather and no scatter. In a bf16 compute dtype the
+profile is built in float32 and cast, and both matmuls, the products, the
+level window and the features are bf16, as the JAX module's
+`compute_dtype` makes them.
 
-The profile is [rows, R]: at a proposal MLP's 2,097,152 rows and R =
-1,024 it is 8.6 GB an axis, so each level is encoded in chunks of rows
-(`CHUNK_ELEMS` bounds rows x R) and is a checkpoint, as the JAX module's
-`jax.checkpoint` per level: autograd keeps only the level's inputs, and
-the backward recomputes each chunk's profiles under autograd and takes
-that chunk's gradients before the next. Rows are independent, so the
-chunks change no number beyond the matmuls' last bits.
+On the card a level is one launch of the hand-written kernel
+(ops/cp_encode.py, csrc/cp_encode.cu), and its table gradient two: the
+profile lives in registers and never in device memory, and nothing is
+chunked. `ops.cp_encode.covers` decides by what the call observes (a CUDA
+tensor, a built width, no gradient wanted for u or var); no flag does.
+
+The plain path (the CPU, and calls whose u or var needs a gradient)
+materialises the dense profile: [rows, R], 8.6 GB an axis at a proposal
+MLP's 2,097,152 rows and R = 1,024, so each level is encoded in chunks of
+rows (`CHUNK_ELEMS` bounds rows x R). Either way a level is a checkpoint,
+as the JAX module's `jax.checkpoint` per level: autograd keeps only the
+level's inputs, and the plain backward recomputes each chunk's profiles
+under autograd and takes that chunk's gradients before the next. Rows are
+independent, so the chunks change no number beyond the matmuls' last bits.
+
+Each level call runs in a profiler span, `snerf.encode.cp.fused` or
+`snerf.encode.cp.plain`, so a trace counts which path it took.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from snerf_tpu_torch.ops import cp_encode
 from snerf_tpu_torch.utils.profiling import span
 
 # rows x R of one chunk's profile: 128 MiB an axis in float32; the
@@ -70,35 +81,19 @@ def _bounded(v: torch.Tensor, bound: float) -> torch.Tensor:
   return 1.0 + bound * torch.tanh(v / bound)
 
 
-def level_encode_rows(u, var, v, p, r: int, bound: float,
+def level_encode_rows(u, var, v, p, bound: float,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
   """One level's integrated-CP features of rows u, var [M, n, 3] (grid
   coordinates and per-axis variances in grid^2 units): the mean over the
   n mixture components of prod_a (w_a @ V_a), with the pair products
   (w_a @ P_a) * (w_b @ P_b) appended when p [3, R, F2] is given. The JAX
-  module's `_level_encode`, op for op: the profile w in float32, then
-  w and the (bounded) tables cast to dtype for the matmuls, and the
-  products in dtype."""
-  iota = torch.arange(r, dtype=torch.float32, device=u.device)
+  module's `_level_encode`, op for op (`cp_encode.encode_rows_plain`): the
+  profile w in float32, then w and the (bounded) tables cast to dtype for
+  the matmuls, and the products in dtype."""
   vb = [_bounded(v[a], bound).to(dtype) for a in range(3)]
   pb = (None if p is None
         else [_bounded(p[a], bound).to(dtype) for a in range(3)])
-  acc = 0.0
-  n = u.shape[-2]
-  for k in range(n):
-    f = 1.0
-    pf = []
-    for a in range(3):
-      d = u[:, k, a, None] - iota                          # [M, R]
-      w = torch.exp(-0.5 * d * d / var[:, k, a, None])
-      w = (w / (torch.sum(w, dim=-1, keepdim=True) + 1e-12)).to(dtype)
-      f = f * (w @ vb[a])                                  # [M, F]
-      if pb is not None:
-        pf.append(w @ pb[a])
-    if pb is not None:
-      f = torch.cat([f, pf[0] * pf[1], pf[1] * pf[2], pf[0] * pf[2]], dim=-1)
-    acc = acc + f
-  return acc / n
+  return cp_encode.encode_rows_plain(u, var, vb, pb, dtype)
 
 
 def _chunk_rows(r: int) -> int:
@@ -106,18 +101,24 @@ def _chunk_rows(r: int) -> int:
 
 
 class _LevelEncode(torch.autograd.Function):
-  """`level_encode_rows` over chunks of rows, checkpointed: the forward
-  keeps only its inputs; the backward recomputes one chunk at a time
-  under autograd and takes its gradients."""
+  """One level, checkpointed: the forward keeps only its inputs. Fused
+  (`cp_encode.covers`): the kernel's forward, and its table gradient in
+  the backward. Plain: `level_encode_rows` over chunks of rows; the
+  backward recomputes one chunk at a time under autograd and takes its
+  gradients."""
 
   @staticmethod
-  def forward(ctx, u, var, v, p, r, bound, dtype):
-    ctx.r, ctx.bound, ctx.dtype = r, bound, dtype
+  def forward(ctx, u, var, v, p, r, bound, dtype, fused):
+    ctx.r, ctx.bound, ctx.dtype, ctx.fused = r, bound, dtype, fused
     ctx.save_for_backward(u, var, v, p)
+    if fused:
+      return _encode_fused(u, var, v, p, bound, dtype)
     return _encode_chunked(u, var, v, p, r, bound, dtype)
 
   @staticmethod
   def backward(ctx, g):
+    if ctx.fused:
+      return (None, None, *_table_grads_fused(ctx, g), None, None, None, None)
     u, var, v, p = ctx.saved_tensors
     need = ctx.needs_input_grad[:4]
     du = torch.zeros_like(u) if need[0] else None
@@ -133,8 +134,7 @@ class _LevelEncode(torch.autograd.Function):
       wrt = [t for t, want in ((u_c, need[0]), (var_c, need[1]), (v_, need[2]),
                                (p_, p is not None and need[3])) if want]
       with torch.enable_grad():
-        f = level_encode_rows(u_c, var_c, v_, p_, ctx.r, ctx.bound,
-                              ctx.dtype)
+        f = level_encode_rows(u_c, var_c, v_, p_, ctx.bound, ctx.dtype)
         grads = list(torch.autograd.grad(f, wrt, g[s:s + step]))
       if need[0]:
         du[s:s + step] = grads.pop(0)
@@ -144,25 +144,68 @@ class _LevelEncode(torch.autograd.Function):
         dv += grads.pop(0)
       if dp is not None:
         dp += grads.pop(0)
-    return du, dvar, dv, dp, None, None, None
+    return du, dvar, dv, dp, None, None, None, None
+
+
+def _table(v, p, bound, dtype):
+  """T = [V | P] [3, R, F + F2], bounded and cast: the kernel's table."""
+  t = _bounded(v, bound)
+  if p is not None:
+    t = torch.cat([t, _bounded(p, bound)], dim=-1)
+  return t.to(dtype).contiguous()
+
+
+def _encode_fused(u, var, v, p, bound, dtype):
+  with torch.no_grad():
+    return cp_encode.encode_fwd(u.contiguous(), var.contiguous(),
+                                _table(v, p, bound, dtype), v.shape[-1],
+                                dtype)
+
+
+def _table_grads_fused(ctx, g):
+  """(dv, dp) from the kernel's gradient of T: the bound's backward by
+  autograd on the [3, R, F + F2] tables."""
+  u, var, v, p = ctx.saved_tensors
+  need = ctx.needs_input_grad[2:4]
+  if not any(need):
+    return None, None
+  with torch.no_grad():
+    dt = cp_encode.encode_bwd(u.contiguous(), var.contiguous(),
+                              _table(v, p, ctx.bound, ctx.dtype),
+                              v.shape[-1], g, ctx.dtype)
+  nf = v.shape[-1]
+  grads = [dt[..., :nf], None if p is None else dt[..., nf:]]
+  if ctx.bound > 0:
+    for i, t in enumerate((v, p)):
+      if t is not None and need[i]:
+        t_ = t.detach().requires_grad_(True)
+        with torch.enable_grad():
+          (grads[i],) = torch.autograd.grad(_bounded(t_, ctx.bound), t_,
+                                            grads[i])
+  return tuple(gr if want else None for gr, want in zip(grads, need))
 
 
 def _encode_chunked(u, var, v, p, r, bound, dtype):
   step = _chunk_rows(r)
   with torch.no_grad():
     return torch.cat([level_encode_rows(u[s:s + step], var[s:s + step], v, p,
-                                        r, bound, dtype)
+                                        bound, dtype)
                       for s in range(0, u.shape[0], step)], dim=0)
 
 
 def level_encode(u, var, v, p, r: int, bound: float,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
-  """`level_encode_rows` of u, var [M, n, 3] in dtype, chunked by rows
-  and checkpointed when autograd needs it."""
-  if torch.is_grad_enabled() and any(
-      t is not None and t.requires_grad for t in (u, var, v, p)):
-    return _LevelEncode.apply(u, var, v, p, r, bound, dtype)
-  return _encode_chunked(u, var, v, p, r, bound, dtype)
+  """`level_encode_rows` of u, var [M, n, 3] in dtype, by the kernel where
+  `cp_encode.covers` the call, else chunked by rows; checkpointed when
+  autograd needs it."""
+  fused = cp_encode.covers(u, var, v, p, dtype)
+  with span("snerf.encode.cp.fused" if fused else "snerf.encode.cp.plain"):
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (u, var, v, p)):
+      return _LevelEncode.apply(u, var, v, p, r, bound, dtype, fused)
+    if fused:
+      return _encode_fused(u, var, v, p, bound, dtype)
+    return _encode_chunked(u, var, v, p, r, bound, dtype)
 
 
 class CPEncoding(nn.Module):

@@ -16,9 +16,10 @@ each kernel and each idle gap of the trace falls under the phase that
 launched it or kept the device waiting.
 
 `counts(events)` reads a finished profile (`prof.events()`): the units
-(the spans in UNITS: train steps and render chunks) and the host syncs
+(the spans in UNITS: train steps and render chunks), the host syncs
 inside them, the CUDA runtime calls that hold the host until the device
-has drained (SYNC_CALLS), by site. The counting adds no host work inside
+has drained (SYNC_CALLS), by site, and the spans in PER_UNIT a unit (which
+path each CP level encode took). The counting adds no host work inside
 the traced window.
 
 The spans (names fixed):
@@ -32,6 +33,8 @@ The spans (names fixed):
   snerf.level.composite per level: the alpha weights and the compositing
   snerf.encode.hash     a hash encoder's encode (models/hashgrid.py)
   snerf.encode.cp       a CP grid's forward (models/cpgrid.py)
+  snerf.encode.cp.fused one CP level by the kernel (ops/cp_encode.py)
+  snerf.encode.cp.plain one CP level by the plain PyTorch path
   snerf.k1              a trunk's run of square layers (models/mlp.py)
   snerf.train.losses    the model's output to the total loss
   snerf.train.backward  `total.backward()` (its kernels run on autograd's
@@ -68,6 +71,8 @@ UNITS = ("snerf.train.step", "snerf.render.chunk")
 SYNC_CALLS = frozenset({"cudaDeviceSynchronize", "cudaStreamSynchronize",
                         "cudaEventSynchronize", "cudaMemcpy", "cudaFree"})
 NODE_PREFIX = "autograd::engine::evaluate_function: "
+# spans counted a unit by `counts`
+PER_UNIT = ("snerf.encode.cp.fused", "snerf.encode.cp.plain")
 
 
 def span(name: str):
@@ -93,21 +98,30 @@ def _site(e) -> str:
 
 
 def counts(events) -> dict:
-  """The units of a finished profile and the host syncs that start inside
+  """The units of a finished profile, the host syncs that start inside
   one, on any thread (a sync of the backward runs on autograd's), by
-  site: {"units", "host_syncs", "host_syncs_by_site"}."""
+  site, and each PER_UNIT span started inside one, a unit: {"units",
+  "host_syncs", "host_syncs_by_site", "spans_per_unit"}."""
   spans = sorted((e.time_range.start, e.time_range.end) for e in events
                  if e.name in UNITS)
   starts = [s for s, _ in spans]
-  sites: collections.Counter = collections.Counter()
-  for e in events:
-    if e.name not in SYNC_CALLS:
-      continue
+
+  def inside(e) -> bool:
     i = bisect.bisect_right(starts, e.time_range.start) - 1
-    if i >= 0 and e.time_range.start <= spans[i][1]:
+    return i >= 0 and e.time_range.start <= spans[i][1]
+
+  sites: collections.Counter = collections.Counter()
+  per_unit = dict.fromkeys(PER_UNIT, 0)
+  for e in events:
+    if e.name in SYNC_CALLS and inside(e):
       sites[_site(e)] += 1
-  return {"units": len(spans), "host_syncs": sum(sites.values()),
-          "host_syncs_by_site": dict(sorted(sites.items()))}
+    elif e.name in per_unit and inside(e):
+      per_unit[e.name] += 1
+  units = len(spans)
+  return {"units": units, "host_syncs": sum(sites.values()),
+          "host_syncs_by_site": dict(sorted(sites.items())),
+          "spans_per_unit": {k: v / units if units else 0.0
+                             for k, v in per_unit.items()}}
 
 
 class ProfileWindow:

@@ -41,6 +41,7 @@ STEP_TREE = {
     ("snerf.level.sample", "snerf.train.step"),
     ("snerf.level.mlp", "snerf.train.step"),
     ("snerf.encode.cp", "snerf.level.mlp"),
+    ("snerf.encode.cp.plain", "snerf.encode.cp"),
     ("snerf.encode.hash", "snerf.level.mlp"),
     ("snerf.k1", "snerf.level.mlp"),
     ("snerf.level.composite", "snerf.train.step"),
@@ -105,6 +106,10 @@ def test_train_step_records_the_span_tree(tiny):
   assert _count(events, "snerf.train.step") == 1
   for level_span in ("snerf.level.mlp", "snerf.level.composite"):
     assert _count(events, level_span) == 3
+  # the nerf grid's 2 CP levels and each proposal grid's 3, all plain on
+  # the CPU
+  assert _count(events, "snerf.encode.cp.plain") == 8
+  assert _count(events, "snerf.encode.cp.fused") == 0
   # the rays' warp and basis, then each level's sampling
   assert _count(events, "snerf.level.sample") == 4
 
@@ -119,6 +124,7 @@ def test_render_chunk_records_the_level_spans(tiny):
       ("snerf.level.sample", "snerf.render.chunk"),
       ("snerf.level.mlp", "snerf.render.chunk"),
       ("snerf.encode.cp", "snerf.level.mlp"),
+      ("snerf.encode.cp.plain", "snerf.encode.cp"),
       ("snerf.encode.hash", "snerf.level.mlp"),
       ("snerf.k1", "snerf.level.mlp"),
       ("snerf.level.composite", "snerf.render.chunk")}
@@ -145,9 +151,12 @@ def test_counts_the_traced_units(tiny):
     step(state, gen)
     step(state, gen)
     render_fn(rays)
-  # on the CPU nothing synchronizes
+  # on the CPU nothing synchronizes, and every CP level (2 + 3 + 3 a unit)
+  # takes the plain path
   assert profiling.counts(prof.events()) == {
-      "units": 3, "host_syncs": 0, "host_syncs_by_site": {}}
+      "units": 3, "host_syncs": 0, "host_syncs_by_site": {},
+      "spans_per_unit": {"snerf.encode.cp.fused": 0.0,
+                         "snerf.encode.cp.plain": 8.0}}
 
 
 def _ev(name, start, end, parent=None):
