@@ -2,8 +2,8 @@
 seed, the numbers the check compares for a sound run of the program, for
 the precision control (the plain reference computed one precision below
 the configuration's, in the program's place) and, with --faults, for
-each planted fault (bench_port/faults.py). No window is timed. One JSON
-line a seed and kind on standard output:
+each fault the cell's traffic kind lists (its module's FAULTS). No window
+is timed. One JSON line a seed and kind on standard output:
 
   python3 -m bench_port.calibrate --workload <cell> --seeds 1 2 3
       [--control] [--faults]
@@ -18,50 +18,17 @@ import sys
 import torch
 
 from bench_port import cell as C
-from bench_port import check, faults
 from bench_port import run as R
 
 
 def readings(cell: C.Cell, control: bool, with_faults: bool):
-  out = R.drive(cell)
-  kind = cell.traffic["kind"]
-  sound = R.numbers(cell, out)
-  if kind == "train":
-    ref = out["answers"][1]
-    sound["leaves_left_out"] = len(ref["change"]) - len(
-        check.moved_leaves(ref))
-  yield "sound", sound
-  if control and kind == "train":
-    from bench_port.drivers import train
-    ref = out["answers"][1]
-    del out
-    lay_scene = _train_inputs(cell)
-    ctrl = train.reference_readings(cell, *lay_scene,
-                                    cell.traffic["check_steps"], control=True)
-    yield "control", check.train_numbers(ctrl, ref)
-  elif control:
-    from bench_port.drivers import render
-    from bench_port import scene as S
-    _, ref, near = out["answers"]
-    del out
-    lay = S.layout(cell.scene_spec, cell.seed)
-    chunk = int(cell.flags["chunk"])
-    keys = sorted(render._samples(cell, cell.traffic["strip_rows"]
-                                  * lay.hw[1] // chunk).items())
-    keys = [(g, c) for g, cs in keys for c in cs]
-    ctrl = render.reference_chunks(cell, lay, keys, chunk, control=True)
-    yield "control", check.render_numbers(ctrl, ref, near)
+  kind = R.kind_module(cell)
+  yield "sound", kind.numbers(kind.run(cell))
+  if control:
+    yield "control", kind.control(cell)
   if with_faults:
-    table = faults.TRAIN if kind == "train" else faults.RENDER
-    for name, fault in table.items():
-      yield name, R.numbers(cell, R.drive(cell, fault=fault))
-
-
-def _train_inputs(cell):
-  from bench_port import scene as S
-  lay = S.layout(cell.scene_spec, cell.seed)
-  scene = S.device_scene(cell.scene_spec, lay, cell.seed, cell.device)
-  return scene, lay
+    for name, fault in kind.FAULTS.items():
+      yield name, kind.numbers(kind.run(cell, fault=fault))
 
 
 def main(argv=None) -> int:

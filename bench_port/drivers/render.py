@@ -3,14 +3,28 @@
 + `render_image`, chunk `chunk` of the configuration, the EMA weights
 where the configuration keeps them), closed loop, one job.
 
-Frames are full 1280 x 1920 views at novel poses between neighbouring
-frames (the WAYMO_RENDER generator, bench_port/scene.py). Each frame's
-rays come from `rays_for_image`, and `render_image` renders it a strip
-of `strip_rows` rows at a time (a whole number of chunks), so the window
-can close inside a frame. `sample_chunks` chunks, drawn from the seed
-among the first `sample_strips` strips of the window, are kept and
-compared with the plain reference after the window (strips the window
-did not reach are rendered after it, untimed).
+Every run renders one scene, the rig and the served weights drawn from
+the traffic's `scene_seed`, as a trained scene is rendered again and
+again: the work of a ray follows the field (where the proposal samples
+fall, how many CP terms each sample's window keeps), so a scene drawn
+from the run's seed would make the seed change the work. The run's seed
+draws the views and the compared chunks. Frames are full 1280 x 1920
+views at novel poses between neighbouring frames (the WAYMO_RENDER
+generator, bench_port/scene.py). Each frame's rays come from
+`rays_for_image`, and `render_image` renders a strip of `strip_rows`
+rows at a time (a whole number of chunks). Consecutive strips come from
+consecutive frames, their bands `band_stride` apart, so that a window
+shorter than a frame still sees every view's share of every part of the
+image: how fast a view renders follows the seed that drew it, and a
+window of one view's top rows would follow it too. Every frame's every
+band comes once in `frames` x (bands a frame) strips. `sample_chunks`
+chunks, drawn from the seed among the first `sample_strips` strips of
+the window, are kept and compared with the plain reference after the
+window (strips the window did not reach are rendered after it, untimed).
+
+A window's rate is `render_rays_per_s`; the fault is an altered answer;
+the precision control is the reference with TF32 on, a setting of the
+card (on the CPU it reads as the reference).
 """
 
 from __future__ import annotations
@@ -21,10 +35,15 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from bench_port import check, faults
 from bench_port import scene as S
 from bench_port import weights
 from bench_port.cell import Cell, Pacer, sync
 from bench_port.drivers.train import _free, configs, new_state
+
+RATE = "render_rays_per_s"
+FAULTS = {"altered_answer": faults.altered_answer}
+CONTROL_NEEDS_CARD = True
 
 
 def _samples(cell: Cell, chunks_per_strip: int):
@@ -38,41 +57,75 @@ def _samples(cell: Cell, chunks_per_strip: int):
   return out
 
 
+def scene_seed(cell: Cell) -> int:
+  """The seed of the rendered scene: its rig and its served weights."""
+  return int(cell.traffic["scene_seed"])
+
+
 class Frames:
-  """The window's strips in order: frame by frame, `strip_rows` rows at a
-  time, the frames cycling when the window outlasts them."""
+  """The window's strips in order: strip g is band (g // frames + f *
+  band_stride) mod (bands a frame) of frame f = g mod frames, the cycle
+  starting again when the window outlasts it. One frame's rays are held
+  at a time. The cameras and the near and far bounds go to the device
+  once: a copy from the host's memory would wait for the strips queued
+  before it at every change of frame."""
 
   def __init__(self, torch, cell, lay, rays_for_image):
-    self.torch, self.cell, self.lay = torch, cell, lay
+    self.lay = lay
     self.rays_for_image = rays_for_image
     tr = cell.traffic
     self.poses, self.Ks = S.render_poses(lay, tr["frames"], cell.seed)
-    self.rows = tr["strip_rows"]
+    self.rows, self.stride = tr["strip_rows"], tr["band_stride"]
     self.per_frame = lay.hw[0] // self.rows
+    on = lambda x: torch.as_tensor(x, dtype=torch.float32, device=cell.device)
+    self._cams = (on(self.poses), on(self.Ks), on(lay.near), on(lay.far))
     self._frame, self._rays = None, None
 
+  def where(self, g: int):
+    """(frame, band) of strip g."""
+    n = len(self.poses)
+    f = g % n
+    return f, (g // n + f * self.stride) % self.per_frame
+
   def strip(self, g: int):
-    f, s = divmod(g, self.per_frame)
-    f %= len(self.poses)
+    f, s = self.where(g)
     if f != self._frame:
-      dev = self.cell.device
-      self._rays = self.rays_for_image(
-          self.torch.as_tensor(self.poses[f], device=dev),
-          self.torch.as_tensor(self.Ks[f], device=dev), *self.lay.hw,
-          self.lay.near, self.lay.far)
+      poses, Ks, near, far = self._cams
+      self._rays = None
+      self._rays = self.rays_for_image(poses[f], Ks[f], *self.lay.hw, near,
+                                       far)
       self._frame = f
     r0 = s * self.rows
     return self._rays.map(lambda x: x[r0:r0 + self.rows])
 
 
 def _program(cell: Cell):
-  """(the trainer's module, a train state) with the served weights from
-  the seed: the EMA copy where the configuration keeps one (the live
+  """(the trainer's module, a train state) with the scene's served
+  weights: the EMA copy where the configuration keeps one (the live
   parameters then hold another draw), else the parameters."""
-  zt, _, state = new_state(cell, reference=False)
+  zt, _, state = new_state(cell, reference=False, seed=scene_seed(cell))
   if state.ema is not None:
-    weights.load(state.model, cell.seed, stream="live")
+    weights.load(state.model, scene_seed(cell), stream="live")
   return zt, state
+
+
+def numbers(out: Dict) -> Dict[str, float]:
+  """The numbers the check compares (`check.render_numbers`)."""
+  prog, ref, near = out["answers"]
+  return check.render_numbers(prog, ref, near)
+
+
+def control(cell: Cell) -> Dict[str, float]:
+  """The precision control's numbers: the reference's sampled chunks
+  computed with TF32 on, in the program's place, against the reference's."""
+  lay = S.layout(cell.scene_spec, scene_seed(cell))
+  chunk = int(cell.flags["chunk"])
+  per_strip = cell.traffic["strip_rows"] * lay.hw[1] // chunk
+  keys = [(g, c) for g, cs in sorted(_samples(cell, per_strip).items())
+          for c in cs]
+  ref = reference_chunks(cell, lay, keys, chunk)
+  ctrl = reference_chunks(cell, lay, keys, chunk, control=True)
+  return check.render_numbers(ctrl, ref, lay.near)
 
 
 def run(cell: Cell, fault: Optional[Callable] = None) -> Dict:
@@ -90,7 +143,7 @@ def run(cell: Cell, fault: Optional[Callable] = None) -> Dict:
   chunk = int(cell.flags["chunk"])
   parts = {}
   t = time.perf_counter()
-  lay = S.layout(cell.scene_spec, cell.seed)
+  lay = S.layout(cell.scene_spec, scene_seed(cell))
   frames = Frames(torch, cell, lay, rays_for_image)
   per_strip = frames.rows * lay.hw[1] // chunk
   samples = _samples(cell, per_strip)
@@ -183,7 +236,7 @@ def reference_chunks(cell: Cell, lay, keys, chunk: int,
   from bench_port.reference.train.renderer import make_zip_eval_render_fn
   zcfg = configs(cell, reference=True)[0]
   model = ZipNerfModel(zcfg, device=cell.device)
-  weights.load(model, cell.seed)
+  weights.load(model, scene_seed(cell))
   render_fn = make_zip_eval_render_fn(model)
   frames = Frames(torch, cell, lay, rays_for_image)
   out = []

@@ -10,6 +10,10 @@ compares with the plain reference run on the same weights and draws:
 each step's loss, each leaf's first gradient as Adam got it (its first
 moment over 1 - beta1) and each leaf's change after the steps (the EMA
 copy's too).
+
+A window's rate is `train_rays_per_s`; the faults are a state left
+unchanged and half the batch left out; the precision control is the
+reference with the trunks' operands rounded through float8.
 """
 
 from __future__ import annotations
@@ -20,9 +24,15 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from bench_port import check, faults
 from bench_port import scene as S
 from bench_port import weights
 from bench_port.cell import Cell, Pacer, flag_argv, sync
+
+RATE = "train_rays_per_s"
+FAULTS = {"unchanged_state": faults.unchanged_state,
+          "half_batch": faults.half_batch}
+CONTROL_NEEDS_CARD = False
 
 
 def configs(cell: Cell, reference: bool):
@@ -38,8 +48,9 @@ def configs(cell: Cell, reference: bool):
   return zip_model_config(cfg), zip_train_config(cfg)
 
 
-def new_state(cell: Cell, reference: bool):
-  """(module of the trainer, train config, state) with the seed's weights:
+def new_state(cell: Cell, reference: bool, seed: Optional[int] = None):
+  """(module of the trainer, train config, state) with the weights of
+  `seed` (by default the run's):
   the state `create_zip_train_state` makes (the model, its Adam with the
   encoder tables in their own group, the EMA copy, no pose model, as
   cli.train builds it), put together from the same constructors without
@@ -54,7 +65,7 @@ def new_state(cell: Cell, reference: bool):
     from snerf_tpu_torch.train import zip_trainer as zt
   zcfg, tcfg = configs(cell, reference)
   model = ZipNerfModel(zcfg, device=cell.device)
-  weights.load(model, cell.seed)
+  weights.load(model, cell.seed if seed is None else seed)
   state = zt.ZipTrainState(step=0, model=model,
                            optimizer=zt.make_zip_optimizer(model, tcfg))
   if tcfg.ema_decay > 0:
@@ -128,6 +139,26 @@ def reference_readings(cell: Cell, scene, lay, n_steps: int,
   tcfg, state, step = build(cell, scene, lay, reference=True)
   with lower_precision() if control else contextlib.nullcontext():
     return readings(cell, tcfg, state, step, draws(cell), n_steps)
+
+
+def numbers(out: Dict) -> Dict[str, float]:
+  """The numbers the check compares (`check.train_numbers`), and how many
+  leaves `change_gap` leaves out (which no limit names)."""
+  prog, ref = out["answers"]
+  return {**check.train_numbers(prog, ref),
+          "leaves_left_out": len(ref["change"]) - len(check.moved_leaves(ref))}
+
+
+def control(cell: Cell) -> Dict[str, float]:
+  """The precision control's numbers: the reference computed with the
+  trunks' operands through float8, in the program's place, against the
+  reference."""
+  lay = S.layout(cell.scene_spec, cell.seed)
+  scene = S.device_scene(cell.scene_spec, lay, cell.seed, cell.device)
+  steps = cell.traffic["check_steps"]
+  ref = reference_readings(cell, scene, lay, steps)
+  ctrl = reference_readings(cell, scene, lay, steps, control=True)
+  return check.train_numbers(ctrl, ref)
 
 
 def run(cell: Cell, fault: Optional[Callable] = None) -> Dict:

@@ -1,7 +1,8 @@
 """Faults planted under the timed path, for the tests that see `correct`
 come out false and for reading each fault's numbers on the card. Each
-takes what the traffic loop built and returns the broken callable; none is
-reachable from a benchmark run."""
+takes what the traffic loop built and returns the broken callable; a
+traffic kind's module lists the ones its cells can have in its FAULTS;
+none is reachable from a benchmark run."""
 
 from __future__ import annotations
 
@@ -45,7 +46,3 @@ def altered_answer(render_fn, delta: float = 0.05):
     out["rgb"][0] += delta
     return out
   return broken
-
-
-TRAIN = {"unchanged_state": unchanged_state, "half_batch": half_batch}
-RENDER = {"altered_answer": altered_answer}

@@ -3,7 +3,9 @@
 (seconds the chip would need at its peaks, from bench_port/counts/) and
 returns a number, or None when its run has nothing to read (the metric is
 then left out of the line). A share is never returned as 0 for want of a
-reading."""
+reading. Beside `read`, each reader keeps its canned case, `CANNED`: a
+TraceReading's fields, the work counts and the value `read` must give
+from them, which the tests read."""
 
 from __future__ import annotations
 

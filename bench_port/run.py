@@ -7,7 +7,9 @@ from the root of a checkout. The cell's entry in BENCHMARK.json names its
 configuration file and its traffic mix (bench_port/traffic/<mix>.json,
 whose "kind" picks the loop in bench_port/drivers/); its limits are in
 bench_port/limits/<cell>.json and each per-layer metric's reader in
-bench_port/metrics/<metric>.py. The run builds its scene and weights on
+bench_port/metrics/<metric>.py. The kind's module gives its rate, its
+comparison, its faults and its precision control (drivers/__init__.py).
+The run builds its scene and weights on
 the card from the seed, warms up, measures for --seconds (--trace 0: the
 cell's end-to-end metrics) or profiles a few steps or chunks (--trace 1:
 its per-layer metrics), checks what the timed path produced against the
@@ -61,28 +63,32 @@ def make_cell(args, device, bench, overrides=None) -> C.Cell:
                 device=device, t_start=T_START, overrides=overrides)
 
 
+def kind_module(cell: C.Cell):
+  """The module of the cell's traffic kind, bench_port/drivers/<kind>.py."""
+  return importlib.import_module(f"bench_port.drivers.{cell.traffic['kind']}")
+
+
 def drive(cell: C.Cell, fault=None):
   """Run the loop of the cell's traffic kind; returns what it measured."""
-  kind = cell.traffic["kind"]
-  module = importlib.import_module(f"bench_port.drivers.{kind}")
-  return module.run(cell, fault=fault)
+  return kind_module(cell).run(cell, fault=fault)
 
 
 def numbers(cell: C.Cell, out) -> dict:
-  from bench_port import check
-  if cell.traffic["kind"] == "train":
-    return check.train_numbers(*out["answers"])
-  prog, ref, near = out["answers"]
-  return check.render_numbers(prog, ref, near)
+  return kind_module(cell).numbers(out)
+
+
+def metric_module(name: str):
+  """The per-layer metric's reader, bench_port/metrics/<name>.py: its
+  `read(reading, work)` and its canned case `CANNED`."""
+  spec = importlib.util.spec_from_file_location(
+      f"bench_port_metric_{name.replace('.', '_')}", C.metric_file(name))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
 
 
 def read_metric(name: str, reading, work):
-  path = C.metric_file(name)
-  spec = importlib.util.spec_from_file_location(
-      f"bench_port_metric_{name.replace('.', '_')}", path)
-  mod = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(mod)
-  return mod.read(reading, work)
+  return metric_module(name).read(reading, work)
 
 
 def _applies(metric, cell_name: str, bench) -> bool:
@@ -104,9 +110,8 @@ def result(cell: C.Cell, out, bench, compared, correct, device_info):
           metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     device_info.update(busy_s=reading.busy_s(), window_s=reading.window_s)
   else:
-    rates = {"train": "train_rays_per_s", "render": "render_rays_per_s"}
     values = {
-        rates[cell.traffic["kind"]]:
+        kind_module(cell).RATE:
             out["units"] * out["rays_per_unit"] / out["wall_s"],
         "peak_mem_GiB": out["memory_peak_bytes"] / GIB,
         "setup_s": out["setup_s"]}

@@ -1,7 +1,8 @@
 """BENCHMARK.json parses, keeps to the contract's names, units and keys,
-and every cell's configuration, traffic, limits and metric files are
-found by name."""
+and every cell's configuration, traffic, kind module, limits and metric
+files are found by name."""
 
+import importlib
 import json
 import re
 
@@ -85,6 +86,12 @@ def test_cell_files_found_by_name(w):
   assert NAME.match(w["traffic"]) and NAME.match(w["config"])
   traffic = json.loads(C.traffic_file(w["traffic"]).read_text())
   assert (C.BENCH / "drivers" / f"{traffic['kind']}.py").is_file()
+  kind = importlib.import_module(f"bench_port.drivers.{traffic['kind']}")
+  for attr in ("RATE", "FAULTS", "CONTROL_NEEDS_CARD", "run", "numbers",
+               "control"):
+    assert hasattr(kind, attr), (traffic["kind"], attr)
+  rate = [m for m in BENCH["end_to_end"] if m["name"] == kind.RATE]
+  assert rate and w["name"] in rate[0].get("workloads", [w["name"]])
   assert C.limits_file(w["name"]).is_file()
   C.config_file(BENCH, w["config"])
 

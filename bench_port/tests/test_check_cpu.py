@@ -1,8 +1,9 @@
 """Runs of every cell at small sizes on the CPU (the kernels' plain
 versions), with the timed path broken underneath: a sound run compares
-equal to the reference, and each fault the cell can have, and the
-training cells' precision control, come out not correct under the cell's
-limits."""
+equal to the reference, and each fault the cell's traffic kind lists, and
+its precision control, come out not correct under the cell's limits. A
+cell's faults and control come from its kind's module; a control that
+means something only on a card runs only there."""
 
 import argparse
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from bench_port import cell as C
-from bench_port import check, faults
+from bench_port import check
 from bench_port import run as R
 from bench_port.tests import small
 
@@ -25,6 +26,9 @@ def _cell(name, seed=2 ** 33 + 5):
                      small.overrides(w["config"], w["traffic"]))
 
 
+KINDS = {name: R.kind_module(_cell(name)) for name in CELLS}
+
+
 def _correct(name, fault=None):
   cell = _cell(name)
   numbers = R.numbers(cell, R.drive(cell, fault=fault))
@@ -37,48 +41,24 @@ def test_sound_run_is_correct(name):
   assert ok, compared
 
 
-FAULTS = [(n, f) for n in sorted(CELLS) for f in sorted(
-    faults.TRAIN if CELLS[n]["traffic"] == "train" else faults.RENDER)]
+FAULTS = [(n, f) for n in sorted(CELLS) for f in sorted(KINDS[n].FAULTS)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS)
 def test_fault_is_not_correct(name, fault):
-  table = faults.TRAIN if CELLS[name]["traffic"] == "train" else faults.RENDER
-  ok, compared = _correct(name, fault=table[fault])
+  ok, compared = _correct(name, fault=KINDS[name].FAULTS[fault])
   assert not ok, compared
 
 
-@pytest.mark.parametrize("name", sorted(n for n, w in CELLS.items()
-                                        if w["traffic"] == "train"))
-def test_precision_control_is_not_correct(name):
-  from bench_port import scene as S
-  from bench_port.drivers import train
-  cell = _cell(name)
-  lay = S.layout(cell.scene_spec, cell.seed)
-  scene = S.device_scene(cell.scene_spec, lay, cell.seed, cell.device)
-  steps = cell.traffic["check_steps"]
-  ref = train.reference_readings(cell, scene, lay, steps)
-  ctrl = train.reference_readings(cell, scene, lay, steps, control=True)
-  ok, compared = check.verdict(check.train_numbers(ctrl, ref),
-                               check.load_limits(name))
-  assert not ok, compared
+CONTROLS = [pytest.param(n, marks=pytest.mark.card)
+            if KINDS[n].CONTROL_NEEDS_CARD else n for n in sorted(CELLS)]
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("name", sorted(n for n, w in CELLS.items()
-                                        if w["traffic"] == "render"))
-def test_render_precision_control_is_not_correct(name, card):
-  from bench_port import scene as S
-  from bench_port.drivers import render
+@pytest.mark.parametrize("name", CONTROLS)
+def test_precision_control_is_not_correct(name, request):
   cell = _cell(name)
-  cell.device = card
-  lay = S.layout(cell.scene_spec, cell.seed)
-  chunk = int(cell.flags["chunk"])
-  per_strip = cell.traffic["strip_rows"] * lay.hw[1] // chunk
-  keys = [(g, c) for g, cs in sorted(render._samples(cell, per_strip).items())
-          for c in cs]
-  ref = render.reference_chunks(cell, lay, keys, chunk)
-  ctrl = render.reference_chunks(cell, lay, keys, chunk, control=True)
-  ok, compared = check.verdict(check.render_numbers(ctrl, ref, lay.near),
+  if KINDS[name].CONTROL_NEEDS_CARD:
+    cell.device = request.getfixturevalue("card")
+  ok, compared = check.verdict(KINDS[name].control(cell),
                                check.load_limits(name))
   assert not ok, compared

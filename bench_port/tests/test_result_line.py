@@ -21,16 +21,35 @@ def _cell(name, traced):
   return R.make_cell(args, torch.device("cpu"), BENCH)
 
 
-def _out(traced):
+def _canned_trace(name):
+  """One traced window made of the canned readings of the cell's per-layer
+  metrics, one after another on the clock, and the sum of their work."""
+  kernels, layer_s, work, idle = [], {}, {}, []
+  window_s, units = 0.0, 0
+  for m in BENCH["per_layer"]:
+    if not R._applies(m, name, BENCH):
+      continue
+    case = R.metric_module(m["name"]).CANNED
+    r = case["reading"]
+    kernels += [(k, s + window_s, e + window_s) for k, s, e in r["kernels"]]
+    for key, v in r["layer_s"].items():
+      layer_s[key] = layer_s.get(key, 0.0) + v
+    for key, v in case["work"].items():
+      work[key] = work.get(key, 0.0) + v
+    idle += r["idle_by_host"]
+    window_s += r["window_s"]
+    units += r["units"]
+  return trace.TraceReading(kernels=kernels, layer_s=layer_s,
+                            window_s=window_s, units=units,
+                            idle_by_host=idle[:10]), work
+
+
+def _out(name, traced):
   out = {"units": 7, "rays_per_unit": 32768, "wall_s": 10.5,
          "memory_peak_bytes": 15 * 2 ** 30, "setup_s": 20.0,
          "setup_parts": {"scene_s": 1.0}, "reference_s": 4.0}
   if traced:
-    out["trace"] = trace.TraceReading(
-        kernels=[("k", 0.0, 0.3)], layer_s={"encoders": 0.1,
-                                           "hash_encode": 0.1, "k1": 0.1},
-        window_s=0.4, units=3, idle_by_host=[("aten::item", 0.05)])
-    out["work"] = {"products_s": 0.004, "k1_s": 0.01, "hash_encode_s": 0.005}
+    out["trace"], out["work"] = _canned_trace(name)
   return out
 
 
@@ -41,7 +60,8 @@ def test_line_keys_and_metrics(name, traced):
   device = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1,
             "memory_peak_bytes": 15 * 2 ** 30}
   compared = {"loss_gap": {"value": 1e-6, "limit": 1e-4}}
-  line = R.result(cell, _out(traced), BENCH, compared, True, dict(device))
+  line = R.result(cell, _out(name, traced), BENCH, compared, True,
+                  dict(device))
   stdout, stderr = io.StringIO(), io.StringIO()
   R.emit(line, compared, stdout, stderr)
   last = json.loads(stdout.getvalue().splitlines()[-1])

@@ -18,6 +18,15 @@ belongs to the layers of the innermost span or node among its ancestors
 that any layer names; so a checkpoint's recompute, run under whichever
 node first unpacks, is not charged to that node's layer unless it runs
 inside one of the layer's own spans.
+
+Each device event is charged once. The profiler lists a kernel under
+every host event that carries its launch's correlation id, and under
+some that do not launch it: a "Command Buffer Full" wait inside the
+launch's runtime call (where the host waited for room in the launch
+queue), the profiler's own buffer events nested in the op, and a runtime
+call such as `cudaStreamIsCapturing` whose id collides with the op's.
+Runtime calls and what runs inside one own no kernel; of the other
+listings of one id, the outermost (the earliest to start) does.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
+import re
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -150,8 +160,8 @@ def reduce_events(events, window_s: float, units: int, layers,
   device events. A kernel whose name a layer lists goes to that layer;
   each CPU event's other launched kernels go to the layers of the
   innermost marking span or node above it, each kernel name capped at the
-  device time that name took (a kernel listed under more than one event
-  is not counted twice)."""
+  device time that name took. The kernels of one launch are counted once,
+  under the host event that owns them (`_owners`)."""
   marks = _markers(layers)
   kernels, budget = [], {}
   cpu = []
@@ -170,9 +180,7 @@ def reduce_events(events, window_s: float, units: int, layers,
       layer_s[layer] += budget[name]
     if named:
       budget[name] = 0.0
-  for e in cpu:
-    if not e.kernels:
-      continue
+  for e in _owners(cpu):
     owner, p = None, e
     while p is not None and owner is None:
       owner = marks.get(p.name)
@@ -187,6 +195,36 @@ def reduce_events(events, window_s: float, units: int, layers,
           layer_s[layer] += sec
   return TraceReading(kernels=kernels, layer_s=layer_s, window_s=window_s,
                       units=units, idle_by_host=_idle_by_host(kernels, cpu))
+
+
+_RUNTIME = re.compile(r"cu(da)?[A-Z]")
+
+
+def _lists_only(e) -> bool:
+  """Whether a host event lists kernels without launching them: a CUDA
+  runtime call, a "Command Buffer Full" wait, or an event inside either."""
+  return e is not None and (e.name == "Command Buffer Full"
+                            or bool(_RUNTIME.match(e.name))
+                            or _lists_only(e.cpu_parent))
+
+
+def _owners(cpu):
+  """The host events that own the kernels they list, in their order: of
+  the events of one correlation id (where there is none, of one name and
+  interval) that list kernels and are not `_lists_only`, the outermost,
+  the earliest to start (the longest of those)."""
+  best = {}
+  for e in cpu:
+    if not e.kernels or _lists_only(e):
+      continue
+    corr = getattr(e, "id", 0)
+    key = corr if corr > 0 else (e.name, e.time_range.start, e.time_range.end)
+    held = best.get(key)
+    if held is None or ((e.time_range.start, -e.time_range.end)
+                        < (held.time_range.start, -held.time_range.end)):
+      best[key] = e
+  chosen = {id(e) for e in best.values()}
+  return [e for e in cpu if id(e) in chosen]
 
 
 def _idle_by_host(kernels, cpu, top: int = 10):
