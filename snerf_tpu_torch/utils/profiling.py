@@ -23,12 +23,18 @@ path each CP level encode took). The counting adds no host work inside
 the traced window.
 
 The spans (names fixed):
-  snerf.train.step      one zip train step (unit; train/zip_trainer.py)
+  snerf.train.step      one train step (unit; train/zip_trainer.py, and
+                        the mip step of train/trainer.py)
   snerf.train.draw      the step's pixel and model draws, the pose table,
                         the ray batch and its targets
+  snerf.train.pose      the mip step's refined pose table (inside draw)
   snerf.level.sample    per level: dilation, resampling, the intervals,
                         s_to_t and the cast (and the rays' warp and basis
-                        before the first level)
+                        before the first level); in the mip model the
+                        stratified or resampled s values alone
+  snerf.encode.ipe      the mip model's encode of a level's samples: the
+                        cast, the warp of the Gaussians and the IPE
+                        (models/mipnerf.py)
   snerf.level.mlp       per level: the MLP's call
   snerf.level.composite per level: the alpha weights and the compositing
   snerf.encode.hash     a hash encoder's encode (models/hashgrid.py)
@@ -37,6 +43,8 @@ The spans (names fixed):
   snerf.encode.cp.plain one CP level by the plain PyTorch path
   snerf.k1              a trunk's run of square layers (models/mlp.py)
   snerf.train.losses    the model's output to the total loss
+  snerf.train.conf      the mip step's depth confidence of its rays
+                        (inside losses)
   snerf.train.backward  `total.backward()` (its kernels run on autograd's
                         thread, outside this span)
   snerf.train.clip      zero-filled grads, the clips, the learning rate

@@ -4,7 +4,7 @@
   the realfocal fixture with configs/nuScenes_depth_6cams, at narrow
   widths, `--device cpu`: checkpoints, the resume, the snapshot, every
   output file of eval.py and render.py, a falling loss; the zip model
-  likewise; the profile window.
+  likewise; the profile window of both models.
 - The shipped nuScenes_depth_6cams on the fixture with the depth
   confidence on (the vgg mode included), and eval with --lpips.
 - configs/waymo_zipnerf on a tiny Waymo layout (dataset_type waymo):
@@ -146,6 +146,32 @@ def test_mip_train_resume_eval_render_synthetic(tmp_path):
                           "--render_mode", "test", "--render_n", "1",
                           "--out_dir", str(tmp_path / "r")])
   assert os.listdir(os.path.join(rdir, "rgb")) == ["00000.png"]
+
+
+def test_mip_train_profile_counts_the_steps(tmp_path):
+  """--profile_steps on the mip model (pose refinement on): the window's
+  counters count the traced steps by the mip step's unit span, and its
+  Chrome trace names the mip step's own spans."""
+  base = str(tmp_path)
+  state = cli_train.main(["--config", TINY, "--basedir", base, *MIP_NARROW,
+                          *CPU, "--N_iters", "4", "--i_print", "10",
+                          "--i_weights", "10", "--i_testset", "0",
+                          "--pose_refine", "True", "--profile_steps", "2",
+                          "--profile_start", "2"])
+  assert state.step == 4
+  prof = os.path.join(base, "synthetic_tiny", "profile")
+  assert sorted(os.listdir(prof)) == ["counters_step000002.json",
+                                      "trace_step000002.json"]
+  with open(os.path.join(prof, "trace_step000002.json")) as f:
+    names = {e.get("name") for e in json.load(f)["traceEvents"]}
+  assert {"snerf.train.step", "snerf.train.draw", "snerf.train.pose",
+          "snerf.encode.ipe", "snerf.level.mlp", "snerf.k1",
+          "snerf.train.losses", "snerf.train.backward"} <= names
+  # steps 2 and 3, no test-view render inside the window
+  with open(os.path.join(prof, "counters_step000002.json")) as f:
+    counts = json.load(f)
+  assert counts["units"] == 2
+  assert counts["host_syncs"] == 0 and counts["host_syncs_by_site"] == {}
 
 
 def test_mip_realfocal_fixture_and_pose_refinement(tmp_path, capsys):

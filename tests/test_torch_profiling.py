@@ -1,14 +1,15 @@
 """The port's tracing (snerf_tpu_torch/utils/profiling.py): the spans a zip
-train step and a render chunk record under torch.profiler and how they
-nest, the no-op they are without a profiler, and the counts of units and
-host syncs read from a finished trace. Torch only (no JAX), so the file
-runs on the card too:
+train step, a mip train step and a render chunk record under
+torch.profiler and how they nest, the no-op they are without a profiler,
+and the counts of units and host syncs read from a finished trace. Torch
+only (no JAX), so the file runs on the card too:
 
   python3 -m pytest --noconftest tests/test_torch_profiling.py -q
 
 where the `card` case counts a real synchronizing CUDA operation.
 """
 
+import contextlib
 import os
 import types
 
@@ -16,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from snerf_tpu_torch.config import (load_config, zip_model_config,
-                                    zip_train_config)
+from snerf_tpu_torch.config import (load_config, model_config, train_config,
+                                    zip_model_config, zip_train_config)
 from snerf_tpu_torch.data import sampler, synthetic
+from snerf_tpu_torch.models import mipnerf, mlp
+from snerf_tpu_torch.train import trainer as mt
 from snerf_tpu_torch.train import zip_trainer as zt
 from snerf_tpu_torch.train.renderer import make_zip_eval_render_fn
 from snerf_tpu_torch.utils import profiling
@@ -51,6 +54,28 @@ STEP_TREE = {
     ("Optimizer.step#Adam.step", "snerf.train.step"),
     ("snerf.train.ema", "snerf.train.step"),
 }
+# configs/nuScenes_depth_6cams (the mip model: warp, depth confidence with
+# its four modes, pose refinement) at narrow widths and a small batch
+MIP_NARROW = ["--N_rgb", "32", "--N_samples", "8", "--N_fine", "8",
+              "--hidden_layer", "16", "--proposal_hidden_layer", "16"]
+# the mip step's spans: the pose table inside the draw, the confidence
+# inside the losses, each level's encode beside its sampling; three Adams
+# (the model's, the pose table's, the lambdas'), no EMA
+MIP_STEP_TREE = {
+    ("snerf.train.step", None),
+    ("snerf.train.draw", "snerf.train.step"),
+    ("snerf.train.pose", "snerf.train.draw"),
+    ("snerf.level.sample", "snerf.train.step"),
+    ("snerf.encode.ipe", "snerf.train.step"),
+    ("snerf.level.mlp", "snerf.train.step"),
+    ("snerf.k1", "snerf.level.mlp"),
+    ("snerf.level.composite", "snerf.train.step"),
+    ("snerf.train.losses", "snerf.train.step"),
+    ("snerf.train.conf", "snerf.train.losses"),
+    ("snerf.train.backward", "snerf.train.step"),
+    ("snerf.train.clip", "snerf.train.step"),
+    ("Optimizer.step#Adam.step", "snerf.train.step"),
+}
 # the trunk checkpoint's recompute runs K1 again in the backward: under
 # the backward's span on the CPU, on autograd's own thread on the card
 RECOMPUTE = {("snerf.k1", "snerf.train.backward"), ("snerf.k1", None)}
@@ -76,6 +101,32 @@ def tiny():
   rays, _ = sampler.sample_batch(dev, scene.i_train, 32, scene.near,
                                  scene.far, generator=gen)
   return state, step, gen, make_zip_eval_render_fn(state.model), rays
+
+
+def _mip_state():
+  """(state, step) of a tiny mip model, seeded, on a synthetic scene with
+  depth and random confidence maps."""
+  cfg = load_config(["--config", os.path.join(REPO, "configs",
+                                              "nuScenes_depth_6cams"),
+                     *MIP_NARROW])
+  mcfg, tcfg = model_config(cfg), train_config(cfg)
+  assert tcfg.depth_conf and tcfg.pose_refine and not mcfg.no_warp_sample
+  scene = synthetic.make_synthetic_scene(num_images=6, H=12, W=16,
+                                         datahold=3)
+  dev = sampler.scene_to_device(scene, "cpu")
+  maps = torch.randint(0, 256, (len(scene.i_train), len(tcfg.conf_modes),
+                                12, 16), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(3))
+  model, pose_model, state = mt.create_train_state(
+      0, mcfg, tcfg, scene.num_images, device="cpu")
+  step = mt.make_train_step(model, pose_model, tcfg, dev, scene.i_train,
+                            scene.near, scene.far, conf_maps=maps)
+  return state, step
+
+
+@pytest.fixture(scope="module")
+def tiny_mip():
+  return _mip_state()
 
 
 def _tree(events):
@@ -157,6 +208,51 @@ def test_counts_the_traced_units(tiny):
       "units": 3, "host_syncs": 0, "host_syncs_by_site": {},
       "spans_per_unit": {"snerf.encode.cp.fused": 0.0,
                          "snerf.encode.cp.plain": 8.0}}
+
+
+def test_mip_step_records_the_span_tree(tiny_mip):
+  state, step = tiny_mip
+  gen = torch.Generator().manual_seed(1)
+  step(state, gen)
+  with torch.profiler.profile() as prof:
+    step(state, gen)
+  events = prof.events()
+  assert _tree(events) == MIP_STEP_TREE
+  # the draws and the ray batch; two levels; the proposal trunk's run and
+  # the fine trunk's two around the skip; the three Adams
+  for name, n in (("snerf.train.step", 1), ("snerf.train.draw", 2),
+                  ("snerf.train.pose", 1), ("snerf.train.conf", 1),
+                  ("snerf.level.sample", 2), ("snerf.encode.ipe", 2),
+                  ("snerf.level.mlp", 2), ("snerf.level.composite", 2),
+                  ("snerf.k1", 3), ("Optimizer.step#Adam.step", 3)):
+    assert _count(events, name) == n, name
+  assert profiling.counts(events) == {
+      "units": 1, "host_syncs": 0, "host_syncs_by_site": {},
+      "spans_per_unit": {"snerf.encode.cp.fused": 0.0,
+                         "snerf.encode.cp.plain": 0.0}}
+
+
+def test_mip_step_without_a_profiler_equals_an_unspanned_step(monkeypatch):
+  """Off, the spans change nothing: two steps from the same seed, with the
+  spans and with them replaced by no context at all, give bit-equal
+  metrics and parameters."""
+  runs = []
+  for spanned in (True, False):
+    if not spanned:
+      for mod in (mt, mipnerf, mlp):
+        monkeypatch.setattr(mod, "span", lambda name: contextlib.nullcontext())
+    state, step = _mip_state()
+    gen = torch.Generator().manual_seed(5)
+    metrics = [step(state, gen) for _ in range(2)]
+    params = [p.detach().clone() for m in (state.model, state.pose_model,
+                                           state.conf_model)
+              for p in m.parameters()]
+    runs.append((metrics, params))
+  (m1, p1), (m2, p2) = runs
+  for a, b in zip(m1, m2):
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+  assert all(torch.equal(a, b) for a, b in zip(p1, p2))
 
 
 def _ev(name, start, end, parent=None):
