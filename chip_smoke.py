@@ -86,7 +86,8 @@ Phases, each fatal on failure:
      depth and vgg maps precomputed on the card) on the same synthetic
      scene, N_rgb 4096, seeded: 2 warm-up and 24 timed steps (s/step,
      rays/s, peak memory, K1 launches per step against the expected
-     counts, tf32_split one a forward), finite and falling loss, moved
+     counts, tf32_split one a run's square layers and one an entry
+     layer), finite and falling loss, moved
      confidence lambdas, a torch.profiler breakdown of one step, and one
      step against the same weights, lambdas and draws with the
      stacks' backward plain (every grad within STEP_BWD_TOL) and with
@@ -99,6 +100,12 @@ Phases, each fatal on failure:
      readings (a shifted neighbour table, two VGG layers swapped) that
      must exceed them; then its time per base image at 900 x 1600 on a
      seeded 3-view scene against the VGG's f32 bound;
+  7d. K1 runs opened by an entry layer [K, D] at ENTRY_CASES (two small
+     ragged cases, then mip.train's and cp_hash.render's runs): forward
+     and backward against float64 (entry_case), the run against cuBLAS's
+     entry layer + ReLU and the square run, and the entry layer's
+     forward, dgrad and wgrad + reduce alone against their plain versions
+     and one PyTorch call each (run right after 7a);
   8. zip train slice: the shipped waymo_zipnerf training step at full
      width (zip_lr_delay 0, zip_compute_dtype float32: the f32 step; the
      shipped bf16 one is phase 11b's) on the same scene with semantic
@@ -141,7 +148,8 @@ Phases, each fatal on failure:
      9d. the mip quality cell (snerf_tpu_torch.bench_quality, family
        mip) for its 2,000 steps, seed 0, read at steps 500, 1,000 and
        2,000 beside the JAX package's seeds: held-out PSNR at 2,000 at
-       least CELL_PSNR_FLOOR, K1's backward 9 launches a step; one cell
+       least CELL_PSNR_FLOOR, K1's backward 13 launches a step (11
+       dgrad); one cell
        step under torch.profiler;
  10. configs/waymo_zipnerf_tpu, the cp_hash arm (the integrated CP grid,
      one fine hash level on the nerf MLP, the cylinder cast, 8 x 512
@@ -265,12 +273,20 @@ BF16_TOL = (2e-2, 2e-2)    # a bf16 rounding flip after any layer (2^-8 rel.)
 # 2.6e-4; the small dz tile never stored 0.90 to 11, two runs differing.
 BWD_TOL = 1e-4
 # The train slice: warm-up and timed steps, and K1's launches per step:
-# forward, one for each uniform run (fine trunk_1..4 and trunk_6..7,
-# proposal trunk_1..3), each with one tf32_split of its weights; dgrad,
-# wgrad and reduce, one per layer of those runs, 4 + 2 + 3 (every run's
-# input carries grad, so layer 0 gets dgrad).
+# forward, one for each run (in f32 fine layers.0..4 and layers.5..7,
+# proposal layers.0..3, each opened by its entry layer, and the
+# bottleneck), with one tf32_split of the square layers' weights and one
+# of the entry layer's (7); dgrad, wgrad and reduce, one per layer of
+# those runs, 5 + 3 + 4 + 1 (every run's input carries grad, so layer 0
+# gets dgrad). In bf16 (the bench line) the entry layers and the
+# bottleneck stay on cuBLAS: the runs are trunk_1..4, trunk_6..7 and
+# proposal trunk_1..3, 4 + 2 + 3 layers.
 TRAIN_WARMUP, TRAIN_STEPS = 2, 24
-K1_FWD_PER_STEP, K1_BWD_PER_STEP = 3, 9
+K1_FWD_PER_STEP, K1_SPLITS_PER_STEP, K1_BWD_PER_STEP = 4, 7, 13
+K1_FWD_BF16_PER_STEP, K1_BWD_BF16_PER_STEP = 3, 9
+# The mip quality cell's rays carry no pose gradient, so the two runs
+# opened at a trunk's input (proposal and fine layers.0) need no dx.
+CELL_K1_DGRAD_PER_STEP = K1_BWD_PER_STEP - 2
 # One step of the kernel model against the same model whose stacks run
 # the kernel forward and fused_mlp_bwd_plain on its saved layers: the
 # same forward, so the grads differ only by the backward kernels.
@@ -528,9 +544,9 @@ def bwd_case(torch, fm, name, n, d, n_layers, last_relu, iters,
     bit_equal = torch.equal(out, fm.fused_mlp(x, w, b, last_relu))
   saved = ([] if kept is None else list(kept.unbind(0))) + [out]
   split = fm.tf32_split(w)[:2]  # made once, as the training forward does
-  got = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)
-  want = fm.fused_mlp_bwd_plain(x, w, b, saved, g, last_relu)
-  again = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)
+  got = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)[:3]
+  want = fm.fused_mlp_bwd_plain(x, w, b, saved, g, last_relu)[:3]
+  again = fm.fused_mlp_bwd(x, w, b, saved, g, split, last_relu)[:3]
   torch.cuda.synchronize()
   deterministic = all(torch.equal(p, q) for p, q in zip(got, again))
   errs = _rel_errs(got, want)
@@ -684,6 +700,158 @@ def bwd_kernel_times(torch, fm, n, d, iters):
   del dz, act, w, part_w, part_b, out, dw, db, w_big, w_small
   torch.cuda.empty_cache()
   return res
+
+
+# K1 runs that open with an entry layer [K, D] (the f32 layers of another
+# input width that ran on cuBLAS's FP32 pipes): (name, N, K, D, square
+# layers after it). Two small cases first (N, K and dx's width ragged
+# against the tiles; an entry layer alone), then the runs of mip.train's
+# step and cp_hash.render's chunk (8,192 rays: 32 nerf and 64 proposal
+# samples a ray).
+CP_RENDER_NERF_ROWS, CP_RENDER_PROP_ROWS = 8192 * 32, 8192 * 64
+ENTRY_CASES = (
+    ("ragged", 1000, 36, 128, 1),
+    ("entry alone", 777, 1120, 256, 0),
+    ("mip fine layers.0..4", TRAIN_FINE_ROWS, 96, 1024, 4),
+    ("mip fine layers.5..7", TRAIN_FINE_ROWS, 1120, 1024, 2),
+    ("mip proposal layers.0..3", ROWS, 96, 256, 3),
+    ("cp render nerf ipe_0..4", CP_RENDER_NERF_ROWS, 356, 512, 4),
+    ("cp render nerf ipe_5..7 + density_hidden", CP_RENDER_NERF_ROWS, 868,
+     512, 3),
+    ("cp render proposal ipe_0..4", CP_RENDER_PROP_ROWS, 120, 512, 4),
+    ("cp render proposal ipe_5..7 + density_hidden", CP_RENDER_PROP_ROWS,
+     632, 512, 3),
+)
+
+
+def entry_case(torch, fm, name, n, k, d, n_sq, iters):
+  """A K1 run opened by an entry layer against float64: the forward (the
+  layers-kept launch bit-equal to the eval one) within F32_TOL of the f64
+  plain forward, and the backward kernels on the kept layers (dx, dW_in,
+  the square layers' dW, every db) within BWD_TOL x max|f64| of
+  fused_mlp_bwd_plain in f64; then, timed (CUDA events, in turns), the
+  run against what it replaces (cuBLAS's f32 entry layer and ReLU, then
+  the square run), and the entry layer's forward, dgrad and wgrad +
+  reduce alone against their plain versions and one PyTorch call each
+  (TF32 off)."""
+  gen = torch.Generator(device="cuda").manual_seed(n + 3 * k + d + n_sq)
+  dev, f64 = "cuda", torch.float64
+  x = torch.randn(n, k, generator=gen, device=dev) * 0.5
+  w_in = (torch.rand(k, d, generator=gen, device=dev) * 2 - 1) * (
+      6.0 / (k + d)) ** 0.5
+  w = (torch.rand(n_sq, d, d, generator=gen, device=dev) * 2 - 1) * (
+      6.0 / (2 * d)) ** 0.5
+  b = (torch.rand(n_sq + 1, 1, d, generator=gen, device=dev) * 2 - 1) * 0.1
+  g = torch.randn(n, d, generator=gen, device=dev)
+  with torch.no_grad():
+    out, kept = fm._launch_fwd(x, w, b, True, keep=True, w_in=w_in)
+    bit_equal = torch.equal(out, fm.fused_mlp(x, w, b, True, w_in=w_in))
+    want = fm.fused_mlp_plain(x.to(f64), w.to(f64), b.to(f64), True,
+                              w_in.to(f64))
+  atol, rtol = F32_TOL
+  diff = (out.to(f64) - want).abs()
+  fwd = (float(diff.max()), float(want.abs().max()))
+  fwd_ok = bool((diff <= atol + rtol * want.abs()).all())
+  del want, diff
+  saved = ([] if kept is None else list(kept.unbind(0))) + [out]
+  split = fm.tf32_split(w)[:2] if n_sq else None
+  split_in = [t[0] for t in fm.tf32_split(w_in[None])[:2]]
+  got = fm.fused_mlp_bwd(x, w, b, saved, g, split, True, w_in=w_in,
+                         split_in=split_in)
+  want = fm.fused_mlp_bwd_plain(x.to(f64), w.to(f64), b.to(f64),
+                                [s.to(f64) for s in saved], g.to(f64), True,
+                                w_in.to(f64))
+  torch.cuda.synchronize()
+  errs = {key: (float((a.to(f64) - c).abs().max()), float(c.abs().max()))
+          for key, a, c in zip(("dx", "dW", "db", "dW_in"), got, want)
+          if a.numel()}
+  finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
+  del got, want, kept, saved
+  bwd_ok = all(e <= BWD_TOL * s for e, s in errs.values())
+  fmt = ", ".join(f"{key} {e:.2e} (max|f64| {s:.2e})"
+                  for key, (e, s) in errs.items())
+  log(f"  {name}: N={n} K={k} D={d} L={n_sq + 1}: forward {fwd[0]:.2e} "
+      f"(max|f64| {fwd[1]:.2e}; tol atol={atol} rtol={rtol}), kept layers "
+      f"bit-equal to eval: {bit_equal}; backward {fmt} (tol {BWD_TOL} x "
+      f"max|f64|)")
+  check(finite, f"{name}: an entry run gave non-finite values")
+  check(bit_equal, f"{name}: the forward keeping its layers differs from "
+        "the eval forward")
+  check(fwd_ok, f"{name}: the entry run's forward is off f64 by {fwd}")
+  check(bwd_ok, f"{name}: the entry run's backward is off f64: {errs}")
+  res = dict(err=max([fwd[0] / fwd[1]] + [e / s for e, s in errs.values()]))
+  if n < 2 ** 17:
+    del x, w_in, w, b, g
+    torch.cuda.empty_cache()
+    return res
+
+  # the run against the cuBLAS entry layer + ReLU and the square run
+  b0 = b[0, 0]
+
+  def run():
+    return fm.fused_mlp(x, w, b, True, w_in=w_in)
+
+  def replaced():
+    h = torch.relu(torch.addmm(b0, x, w_in))
+    return fm.fused_mlp(h, w, b[1:], True) if n_sq else h
+
+  r1 = time_ms(torch, replaced, iters)
+  k1 = time_ms(torch, run, iters)
+  k2 = time_ms(torch, run, iters)
+  r2 = time_ms(torch, replaced, iters)
+  res.update(run_ms=(k1 + k2) / 2, replaced_ms=(r1 + r2) / 2)
+  # the entry layer alone: forward, dgrad (dx, unmasked), wgrad + reduce
+  empty = w.new_empty(0, d, d)
+  dz = g
+  dx = torch.empty_like(x)
+  sm = torch.cuda.get_device_properties(0).multi_processor_count
+  rows, splits = fm.wgrad_splits(n, d, sm, m=k)
+  part_w, part_b = x.new_empty(splits, k, d), x.new_empty(splits, d)
+  dw, db = x.new_empty(k, d), x.new_empty(d)
+
+  def wgrad():
+    fm.fused_mlp_bwd_wgrad(x, dz, part_w, part_b, rows)
+    fm.fused_mlp_bwd_reduce(part_w, part_b, dw, db)
+
+  flop = 2.0 * n * k * d
+  for kernel, kern, plain, library, nbytes in (
+      ("fused_mlp", lambda: fm.fused_mlp(x, empty, b[:1], True, w_in=w_in),
+       lambda: fm.fused_mlp_plain(x, empty, b[:1], True, w_in),
+       lambda: torch.relu(torch.addmm(b0, x, w_in)), n * (k + d) + k * d + d),
+      ("fused_mlp_bwd_dgrad",
+       lambda: fm.fused_mlp_bwd_dgrad(dz, *split_in, None, dx),
+       lambda: dz @ w_in.t(), lambda: torch.matmul(dz, w_in.t()),
+       n * (d + k) + k * d),
+      ("fused_mlp_bwd_wgrad", wgrad, lambda: (x.t() @ dz, dz.sum(0)),
+       lambda: x.t() @ dz, n * (k + d) + k * d + d)):
+    p1 = time_ms(torch, plain, iters)
+    t1 = time_ms(torch, kern, iters)
+    t2 = time_ms(torch, kern, iters)
+    p2 = time_ms(torch, plain, iters)
+    lib = time_ms(torch, library, iters)
+    ms = (t1 + t2) / 2
+    b_ms, b_by = bound_ms(nbytes * 4, flop, F32_MMA_RATE)
+    res[kernel] = dict(ms=ms, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by)
+    log(f"    entry layer alone, {kernel}: {ms:.3f} ms ({flop / ms / 1e9:.1f} "
+        f"TFLOP/s; bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of "
+        f"it) plain {(p1 + p2) / 2:.3f} ms, one PyTorch call {lib:.3f} ms "
+        f"({flop / lib / 1e9:.1f} TFLOP/s) [{t1:.3f}/{t2:.3f} vs "
+        f"{p1:.3f}/{p2:.3f}]")
+  log(f"    the run {res['run_ms']:.3f} ms against cuBLAS's entry layer + "
+      f"ReLU and the square run {res['replaced_ms']:.3f} ms [{k1:.3f}/"
+      f"{k2:.3f} vs {r1:.3f}/{r2:.3f}]")
+  del x, w_in, w, b, g, dx, part_w, part_b, dw, db
+  torch.cuda.empty_cache()
+  return res
+
+
+def entry_phase(torch, iters=10):
+  """7d: K1 with an entry layer at ENTRY_CASES (entry_case)."""
+  from snerf_tpu_torch.ops import fused_mlp as fm
+  log("[kernel] K1 runs opened by an entry layer (the f32 first and "
+      "skip-cat layers), against float64 and cuBLAS")
+  return {c[0]: entry_case(torch, fm, *c, iters=iters) for c in ENTRY_CASES}
 
 
 def profile_step(torch, step_fn, what="step"):
@@ -864,16 +1032,16 @@ def train_slice(torch, scene, card):
   log(f"  loss: first 10 mean {first:.5f}, last 10 mean {last:.5f}; "
       f"{' '.join(f'{v:.4f}' for v in losses)}")
   per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-  log(f"  K1 launches per step: {per_step} (expected forward and "
-      f"tf32_split {K1_FWD_PER_STEP} each, dgrad / wgrad / reduce "
-      f"{K1_BWD_PER_STEP} each)")
+  log(f"  K1 launches per step: {per_step} (expected forward "
+      f"{K1_FWD_PER_STEP}, tf32_split {K1_SPLITS_PER_STEP}, dgrad / wgrad "
+      f"/ reduce {K1_BWD_PER_STEP} each)")
   check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
   check(last < first, f"the loss did not fall: first 10 {first}, last 10 "
         f"{last}")
-  for name in ("fused_mlp", "tf32_split"):
-    check(counts[name] == K1_FWD_PER_STEP * TRAIN_STEPS,
-          f"{name} launches {counts[name]}, expected "
-          f"{K1_FWD_PER_STEP * TRAIN_STEPS}")
+  for name, want in (("fused_mlp", K1_FWD_PER_STEP),
+                     ("tf32_split", K1_SPLITS_PER_STEP)):
+    check(counts[name] == want * TRAIN_STEPS,
+          f"{name} launches {counts[name]}, expected {want * TRAIN_STEPS}")
   for name in ("fused_mlp_bwd_dgrad", "fused_mlp_bwd_wgrad",
                "fused_mlp_bwd_reduce"):
     check(counts[name] == K1_BWD_PER_STEP * TRAIN_STEPS,
@@ -893,21 +1061,22 @@ def train_slice(torch, scene, card):
     them backward."""
 
     @staticmethod
-    def forward(ctx, x, w, b, last_relu):
-      out, kept = fm._launch_fwd(x, w, b, last_relu, keep=True)
+    def forward(ctx, x, w, b, last_relu, w_in):
+      out, kept = fm._launch_fwd(x, w, b, last_relu, keep=True, w_in=w_in)
       ctx.last_relu = bool(last_relu)
-      ctx.save_for_backward(x, w, b, out,
+      ctx.save_for_backward(x, w, b, w_in, out,
                             *([] if kept is None else kept.unbind(0)))
       return out
 
     @staticmethod
     def backward(ctx, g):
-      x, w, b, out, *layers = ctx.saved_tensors
-      return (*fm.fused_mlp_bwd_plain(x, w, b, [*layers, out],
-                                      g.contiguous(), ctx.last_relu), None)
+      x, w, b, w_in, out, *layers = ctx.saved_tensors
+      dx, dw, db, dw_in = fm.fused_mlp_bwd_plain(
+          x, w, b, [*layers, out], g.contiguous(), ctx.last_relu, w_in)
+      return dx, dw, db, None, dw_in
 
-  def plain_bwd_stack(x, w, b, last_relu=True):
-    return KernelFwdPlainBwd.apply(x, w, b, last_relu)
+  def plain_bwd_stack(x, w, b, last_relu=True, w_in=None):
+    return KernelFwdPlainBwd.apply(x, w, b, last_relu, w_in)
 
   # One step of this model against the same weights with the stacks'
   # backward plain (same forward) and with plain stacks, on the same
@@ -2612,8 +2781,9 @@ def zip_cli_phase(torch, base):
 def quality_cell_phase(torch):
   """9d: the mip quality cell (bench_quality's family mip) for its
   CELL_STEPS steps, seed 0, read at its milestones beside the JAX
-  package's seeds: the last at least CELL_PSNR_FLOOR; K1's backward 9
-  launches a step; then one cell step under torch.profiler."""
+  package's seeds: the last at least CELL_PSNR_FLOOR; K1's backward 13
+  launches a step (CELL_K1_DGRAD_PER_STEP dgrad); then one cell step under
+  torch.profiler."""
   from snerf_tpu_torch import bench_quality
 
   scene = bench_quality.load_fixture()
@@ -2629,9 +2799,10 @@ def quality_cell_phase(torch):
       f"{r['train_psnr']:.2f}, {r['wall_s']:.2f} s = "
       f"{r['rays_per_sec']:.0f} rays/s; K1 launches {counts} (backward a "
       f"step {per_step})")
-  check(all(v == K1_BWD_PER_STEP for v in per_step.values()),
-        f"K1 backward launches a step {per_step}, expected "
-        f"{K1_BWD_PER_STEP}")
+  want = {k: (CELL_K1_DGRAD_PER_STEP if k == "fused_mlp_bwd_dgrad"
+              else K1_BWD_PER_STEP) for k in per_step}
+  check(per_step == want,
+        f"K1 backward launches a step {per_step}, expected {want}")
   check(r["psnr"] >= CELL_PSNR_FLOOR, f"mip cell held-out PSNR "
         f"{r['psnr']:.2f} below {CELL_PSNR_FLOOR:.2f}")
   # where a cell step's time goes: a fresh cell, two warm-up steps
@@ -2653,14 +2824,17 @@ def quality_cell_phase(torch):
 # proposal trunk, 1,048,576 the nerf trunk.
 TPU_CONFIG = "waymo_zipnerf_tpu"
 TPU_PROP_ROWS, TPU_NERF_ROWS = 32768 * 64, 32768 * 32
-# K1 a step: two uniform runs a trunk (ipe_1..4; ipe_6, ipe_7 and
-# density_hidden) in each of the 3 MLPs, 6 forward launches, each run
-# again in the backward, where the trunk checkpoint recomputes it: 12
-# forward launches (and 12 weight splits) a step; dgrad, wgrad and reduce
-# once a layer of the runs, (4 + 3) x 3. The fused encode: the nerf MLP's
-# fine level, one forward and one backward a step.
+# K1 a step: two runs a trunk (in bf16 ipe_1..4; ipe_6, ipe_7 and
+# density_hidden; in f32 each opened by its entry layer, ipe_0 and ipe_5)
+# in each of the 3 MLPs, 6 forward launches, each run again in the
+# backward, where the trunk checkpoint recomputes it: 12 forward launches
+# a step (12 weight splits, 24 in f32 with the entry layers'); dgrad,
+# wgrad and reduce once a layer of the runs, (4 + 3) x 3 (f32 (5 + 4) x
+# 3). The fused encode: the nerf MLP's fine level, one forward and one
+# backward a step.
 TPU_K1_RUNS = 6
 TPU_K1_BWD_PER_STEP = 21
+TPU_F32_K1_BWD_PER_STEP = 27
 # The CP level encode's kernel a step or a render chunk: one forward and
 # one table gradient a level, 3 + 3 proposal levels and 4 nerf levels
 CP_LEVELS = 10
@@ -2813,8 +2987,9 @@ def tpu_encode_phase(torch, scene):
   gen = torch.Generator(device="cuda").manual_seed(1)
   _, counts = counted(lambda: step(state, gen))
   log(f"  launches of one f32 cp_hash step: {counts}")
-  check(counts["fused_mlp"] == counts["tf32_split"] == 2 * TPU_K1_RUNS
-        and counts["fused_mlp_bwd_wgrad"] == TPU_K1_BWD_PER_STEP
+  check(counts["fused_mlp"] == 2 * TPU_K1_RUNS
+        and counts["tf32_split"] == 4 * TPU_K1_RUNS
+        and counts["fused_mlp_bwd_wgrad"] == TPU_F32_K1_BWD_PER_STEP
         and counts["fused_mlp_fwd_bf16"] == 0,
         f"the f32 cp_hash step's K1 launches {counts}")
   check(counts["cp_encode_fwd"] == counts["cp_encode_bwd"] == CP_LEVELS,
@@ -3253,15 +3428,15 @@ def bf16_case(torch, fm, name, n, d, n_layers, iters, timed=True):
   fwd_err = float((got.float() - want.float()).abs().max()) / scale
   fwd_fault = float((got.float() - fault.float()).abs().max()) / scale
   del want, fault
-  kb = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)
-  again = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)
+  kb = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)[:3]
+  again = fm.fused_mlp_bwd(x, w, b, saved, g, None, True)[:3]
   torch.cuda.synchronize()
   det = all(torch.equal(p, q) for p, q in zip(kb, again))
   del again
-  pb = fm.fused_mlp_bwd_plain(x, w, b, saved, g, True)
+  pb = fm.fused_mlp_bwd_plain(x, w, b, saved, g, True)[:3]
   errs = {k: e / max(m, 1e-30) for k, (e, m) in _rel_errs(kb, pb).items()}
   del pb
-  fb = fm.fused_mlp_bwd_plain(x, _fault_w(w), b, saved, g, True)
+  fb = fm.fused_mlp_bwd_plain(x, _fault_w(w), b, saved, g, True)[:3]
   faults = {k: e / max(m, 1e-30) for k, (e, m) in _rel_errs(kb, fb).items()}
   del fb, kb
   torch.cuda.empty_cache()
@@ -3454,7 +3629,7 @@ class PlainBf16Stack:
       def backward(ctx, g):
         x, w, b, *saved = ctx.saved_tensors
         return (*fm.fused_mlp_bwd_plain(x, w, b, saved, g.contiguous(),
-                                        ctx.last_relu), None)
+                                        ctx.last_relu)[:3], None)
 
     self.fn = Fn
 
@@ -3598,9 +3773,9 @@ def bench_phase(torch):
   log(f"[bench] {json.dumps(line)}; K1 launches a step {per_step}")
   check(line["precision"] == "bf16" and math.isfinite(line["value"])
         and line["value"] > 0, f"the bench line: {line}")
-  check(per_step.get("fused_mlp_fwd_bf16") == K1_FWD_PER_STEP
-        and per_step.get("fused_mlp_bwd_wgrad_bf16") == K1_BWD_PER_STEP
-        and per_step.get("fused_mlp_bwd_dgrad_bf16") == K1_BWD_PER_STEP
+  check(per_step.get("fused_mlp_fwd_bf16") == K1_FWD_BF16_PER_STEP
+        and per_step.get("fused_mlp_bwd_wgrad_bf16") == K1_BWD_BF16_PER_STEP
+        and per_step.get("fused_mlp_bwd_dgrad_bf16") == K1_BWD_BF16_PER_STEP
         and "fused_mlp" not in per_step,
         f"the bench step's K1 launches {per_step}")
   return dict(line=line, per_step=per_step, counts=counts)
@@ -3822,6 +3997,8 @@ def main() -> int:
   kresults = bwd_kernel_times(torch, fm, fine_rows, 1024, 5)
   bwd_kernel_times(torch, fm, ROWS, 256, 10)   # a proposal layer
   phase_done("7a K1 backward")
+  entry_res = entry_phase(torch)
+  phase_done("7d K1 entry layers")
 
   # 5. slice
   cfg = load_config(["--config",
@@ -3870,10 +4047,12 @@ def main() -> int:
           f"view {i}: acc outside [0, 1]: {float(acc.min())} "
           f"{float(acc.max())}")
   log(f"  fused_mlp launches on the render path: {launches}, tf32_split "
-      f"{split_launches} (3 each per chunk x {n_chunks} chunks expected)")
+      f"{split_launches} ({K1_FWD_PER_STEP} and {K1_SPLITS_PER_STEP} per "
+      f"chunk x {n_chunks} chunks expected)")
   check(launches > 0, "the render path did not launch the fused_mlp kernel")
-  check(split_launches == launches, "the render path's tf32_split launches "
-        f"{split_launches} differ from its forward launches {launches}")
+  check(split_launches * K1_FWD_PER_STEP == launches * K1_SPLITS_PER_STEP,
+        f"the render path's tf32_split launches {split_launches} against its "
+        f"forward launches {launches}")
   log(f"  render rate (2nd view, steady): {H * W / secs[-1]:.1f} rays/s; "
       f"peak device memory {peak / 2**30:.3f} GiB "
       f"(torch.cuda.max_memory_allocated) | {card}")

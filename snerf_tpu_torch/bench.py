@@ -12,8 +12,9 @@ The workload is bench.py's: the S-NeRF shipped nuScenes model (4,096
 rays a step, 128 + 128 samples, width 1024 with 3 rgb layers, cone rays,
 the fn2 warp with the log s->t map), proposal + rgb + depth losses and
 Adam, on the 96 x 128 synthetic scene, with the MLPs in bf16
-(compute_dtype bfloat16: the trunks on K1's bf16 kernels, the other
-layers on cuBLAS bf16, float32 heads), as bench.py trains it. Where
+(compute_dtype bfloat16: the trunks' square runs on K1's bf16 kernels;
+their first layers, the skip-cat layer, the bottleneck and the condition
+layers on cuBLAS bf16; float32 heads), as bench.py trains it. Where
 bench.py runs 15 steps inside a lax.scan, the port runs eager steps. Two
 warm-up steps, then TIMED_STEPS steps on the host clock, ended by a
 synchronize. Runs on a CUDA card only.

@@ -67,6 +67,19 @@
 //     the split is not transposed. The ReLU mask of the layer below is
 //     applied in the epilogue; no split-K, no atomics: two backward runs
 //     are bit-identical.
+//   * The entry layer: an f32 run may open with one layer of another
+//     input width, h = act(x W_0 + b_0) with x [N, K] and W_0 [K, D] (a
+//     trunk's first layer, the layer after a skip-cat), K a multiple of 4
+//     (TMA's 16-byte row stride). Layer 0 reads x in ceil(K / 32) stages,
+//     the last one ragged (TMA zero-fills the columns past K of x and of
+//     W_0's transposed split, so they add nothing), an odd count ending
+//     on the first register buffer; its B operand comes from its own
+//     maps, the square layers' from theirs. Its dgrad, dx = dz W_0^T, is
+//     the same kernel with K-wide output: column tiles over K, the last
+//     clipped in the epilogue. Its wgrad is the wgrad kernel below over
+//     ceil(K / 128) tile rows. Before, these layers ran on cuBLAS's f32
+//     SIMT kernels (~48 TFLOP/s at the mip shapes, 72% of the FP32 pipes'
+//     peak), so only the tensor cores could make them faster.
 //   TMA descriptors are encoded on the host per call
 //   (cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so the
 //   library does not link libcuda) and passed as __grid_constant__.
@@ -398,25 +411,38 @@ __device__ __forceinline__ void consume_stage(
   ++it;
 }
 
+// The k-depth stages of a layer: k0 wide for layer 0 (the last stage
+// ragged), d for the square layers after it.
+__device__ __forceinline__ int layer_ktiles(int layer, int k0, int d) {
+  return ((layer == 0 ? k0 : d) + kHBK - 1) / kHBK;
+}
+
 // f32 forward (kDgrad false) or dgrad (kDgrad true) on a 128-row band;
-// see the note at the top. Forward: tm_in[0] = x, tm_in[1] = out,
-// tm_in[2] = tmp, tm_in[3] = saved (one slab a layer); tm_wb / tm_ws the
-// transposed split weights [L, out, in]; vec = the biases [L, d]. dgrad:
-// tm_in[0] = dz, tm_wb / tm_ws the layer's split W [in, out] (one slab);
-// vec = the mask (null: none); n_layers = 1, so the band never reads a
-// layer back: tm_out, tm_tmp, tm_saved, tmp, saved and last_relu go
-// unread (zero maps and nulls), the price of one mainloop, producer and
-// epilogue for both.
+// see the note at the top. Every layer writes d columns; layer 0 reads
+// k0 (a square run: k0 = d). Forward: tm_x = x [n, k0], tm_out, tm_tmp,
+// tm_saved the layer outputs read back (one slab a layer); tm_w0b /
+// tm_w0s layer 0's transposed split [d, k0], tm_wb / tm_ws the square
+// layers' [*, d, d], layer l >= 1 in slab l - w_base (a square run passes
+// the whole stack as both and w_base 0); vec = the biases [L, d]. dgrad:
+// tm_x = dz [n, k0], tm_w0b / tm_w0s the layer's split W [d in, k0 out]
+// as it lies, out [n, d] (d may be ragged: the epilogue clips it); vec =
+// the mask [n, d] (null: none); n_layers = 1, so the band never reads a
+// layer back: tm_out, tm_tmp, tm_saved, tm_wb, tm_ws, tmp, saved and
+// last_relu go unread (zero maps and nulls), the price of one mainloop,
+// producer and epilogue for both.
 template <bool kDgrad>
 __global__ void __launch_bounds__(kHThreads, 1)
 k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                 const __grid_constant__ CUtensorMap tm_out,
                 const __grid_constant__ CUtensorMap tm_tmp,
                 const __grid_constant__ CUtensorMap tm_saved,
+                const __grid_constant__ CUtensorMap tm_w0b,
+                const __grid_constant__ CUtensorMap tm_w0s,
                 const __grid_constant__ CUtensorMap tm_wb,
                 const __grid_constant__ CUtensorMap tm_ws,
                 const float* __restrict__ vec, float* out, float* tmp,
-                float* saved, int n, int d, int n_layers, int last_relu) {
+                float* saved, int n, int k0, int d, int n_layers,
+                int w_base, int last_relu) {
   extern __shared__ unsigned char smem_raw[];
   Ring ring;
   ring.base = reinterpret_cast<unsigned char*>(
@@ -435,7 +461,6 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wg = warp / 4;
   const int row0 = blockIdx.x * kHBM;
-  const int ktiles = d / kHBK;
   const bool keep = saved != nullptr;
 
   if (wg == 2) {
@@ -445,7 +470,9 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     int it = 0;
     for (int layer = 0; layer < n_layers; ++layer) {
       const CUtensorMap* tin = &tm_x;
-      int slab = 0;
+      const CUtensorMap* twb = &tm_w0b;
+      const CUtensorMap* tws = &tm_w0s;
+      int slab = 0, wslab = 0;
       if (layer > 0) {
         // wait until the consumers have written the previous layer
         named_barrier_sync(kLayerBarrier, 2 * 128 + kProducerThreads);
@@ -453,7 +480,11 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int k = dst_kind(layer - 1, n_layers, keep);
         tin = k == 0 ? &tm_out : k == 1 ? &tm_tmp : &tm_saved;
         slab = k == 2 ? layer - 1 : 0;
+        twb = &tm_wb;
+        tws = &tm_ws;
+        wslab = layer - w_base;
       }
+      const int ktiles = layer_ktiles(layer, k0, d);
       for (int c0 = 0; c0 < d; c0 += kHBN) {
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % kHStages;
@@ -461,10 +492,9 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
           if (lane == 0) {
             mbar_expect_tx(&ring.full[s], kStageBytes);
             tma_load(ring.a(s), tin, &ring.full[s], kt * kHBK, row0, slab);
-            tma_load(ring.b_big(s), &tm_wb, &ring.full[s], kt * kHBK, c0,
-                     layer);
-            tma_load(ring.b_small(s), &tm_ws, &ring.full[s], kt * kHBK, c0,
-                     layer);
+            tma_load(ring.b_big(s), twb, &ring.full[s], kt * kHBK, c0, wslab);
+            tma_load(ring.b_small(s), tws, &ring.full[s], kt * kHBK, c0,
+                     wslab);
           }
           __syncwarp();
         }
@@ -485,25 +515,31 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                    : k == 0 ? out
                    : k == 1 ? tmp
                             : saved + (long long)layer * n * d;
+      const int ktiles = layer_ktiles(layer, k0, d);
       for (int c0 = 0; c0 < d; c0 += kHBN) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = 0.f;
         for (int kt = 0; kt < ktiles; kt += 2) {
           consume_stage<0>(ring, acc, ab, as, it, kt == 0, r_lo, g, t, lane);
-          consume_stage<1>(ring, acc, ab, as, it, false, r_lo, g, t, lane);
+          if (kt + 1 < ktiles)  // an entry layer's count may be odd
+            consume_stage<1>(ring, acc, ab, as, it, false, r_lo, g, t, lane);
         }
         wgmma_wait<0>();
         fence_regs(acc);
+        fence_regs(ab[0]);
+        fence_regs(as[0]);
         fence_regs(ab[1]);
         fence_regs(as[1]);
         if (lane == 0)
           mbar_arrive(&ring.empty[(it + kHStages - 1) % kHStages]);
 
         // Epilogue. Accumulator fragment of n8 block j: rows r, r + 8;
-        // cols 8j + 2t, 8j + 2t + 1 (d[4j + 2h + e]).
+        // cols 8j + 2t, 8j + 2t + 1 (d[4j + 2h + e]); dgrad's d may end
+        // inside the tile (d even, so a pair is in or out whole).
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int col = c0 + 8 * j + 2 * t;
+          if (kDgrad && col >= d) continue;
           float2 bias = make_float2(0.f, 0.f);
           if (!kDgrad) bias = *reinterpret_cast<const float2*>(
                            vec + (long long)layer * d + col);
@@ -540,33 +576,38 @@ k1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// big = cvt.rna.tf32(w), small = cvt.rna.tf32(w - big) for w [L, d, d];
-// (big_t, small_t) are transposed per layer, [l][j][i] = [l][i][j];
-// (big, small) keep w's layout and may be null. A 32 x 32 tile a block,
-// transposed through shared memory so both writes are coalesced.
+// big = cvt.rna.tf32(w), small = cvt.rna.tf32(w - big) for w [L, rows,
+// cols]; (big_t, small_t) are transposed per layer, [l][j][i] = [l][i][j];
+// (big, small) keep w's layout and may be null. A 32 x 32 tile a block
+// (the edge tiles clipped), transposed through shared memory so both
+// writes are coalesced.
 __global__ void tf32_split_kernel(const float* __restrict__ w, float* big,
                                   float* small, float* big_t, float* small_t,
-                                  int d) {
+                                  int rows, int cols) {
   __shared__ float tb[32][33], ts[32][33];
-  const long long base = (long long)blockIdx.z * d * d;
+  const long long base = (long long)blockIdx.z * rows * cols;
   const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
-  for (int r = threadIdx.y; r < 32; r += 8) {
-    const long long e = base + (long long)(i0 + r) * d + j0 + threadIdx.x;
-    const float v = w[e];
-    const float vb = __uint_as_float(to_tf32(v));
-    const float vs = __uint_as_float(to_tf32(v - vb));
-    if (big != nullptr) {
-      big[e] = vb;
-      small[e] = vs;
+  if (j0 + (int)threadIdx.x < cols) {
+    for (int r = threadIdx.y; r < 32 && i0 + r < rows; r += 8) {
+      const long long e = base + (long long)(i0 + r) * cols + j0 + threadIdx.x;
+      const float v = w[e];
+      const float vb = __uint_as_float(to_tf32(v));
+      const float vs = __uint_as_float(to_tf32(v - vb));
+      if (big != nullptr) {
+        big[e] = vb;
+        small[e] = vs;
+      }
+      tb[r][threadIdx.x] = vb;
+      ts[r][threadIdx.x] = vs;
     }
-    tb[r][threadIdx.x] = vb;
-    ts[r][threadIdx.x] = vs;
   }
   __syncthreads();
-  for (int r = threadIdx.y; r < 32; r += 8) {
-    const long long e = base + (long long)(j0 + r) * d + i0 + threadIdx.x;
-    big_t[e] = tb[threadIdx.x][r];
-    small_t[e] = ts[threadIdx.x][r];
+  if (i0 + (int)threadIdx.x < rows) {
+    for (int r = threadIdx.y; r < 32 && j0 + r < cols; r += 8) {
+      const long long e = base + (long long)(j0 + r) * rows + i0 + threadIdx.x;
+      big_t[e] = tb[threadIdx.x][r];
+      small_t[e] = ts[threadIdx.x][r];
+    }
   }
 }
 
@@ -617,19 +658,26 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int d, long long rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// in [n, k0]; layer 0's split (w0b, w0s) [d, k0] and, when w0b differs
+// from wb, the square layers' (wb, ws) [n_layers - 1, d, d]; a square run
+// passes its whole stack [n_layers, d, d] as both (k0 = d). Forward: d a
+// multiple of 128; dgrad (n_layers 1): k0 a multiple of 128, d of 4.
 template <bool kDgrad>
-int launch_wgmma(const void* in, const void* wb, const void* ws,
-                 const void* vec, void* out, void* tmp, void* saved, int n,
-                 int d, int n_layers, int last_relu, cudaStream_t stream) {
-  if (n <= 0 || d <= 0 || d % kHBN != 0 || n_layers <= 0)
+int launch_wgmma(const void* in, const void* w0b, const void* w0s,
+                 const void* wb, const void* ws, const void* vec, void* out,
+                 void* tmp, void* saved, int n, int k0, int d, int n_layers,
+                 int last_relu, cudaStream_t stream) {
+  if (n <= 0 || d <= 0 || k0 <= 0 || k0 % 4 != 0 || d % 4 != 0 ||
+      n_layers <= 0 || (kDgrad ? k0 : d) % kHBN != 0)
     return (int)cudaErrorInvalidValue;
+  const int w_base = w0b == wb ? 0 : 1;
+  if (!kDgrad && w_base == 0 && k0 != d) return (int)cudaErrorInvalidValue;
   if (!kDgrad && n_layers > 1 && tmp == nullptr && saved == nullptr)
     return (int)cudaErrorInvalidValue;
   // dgrad (one layer) reads only tm[0], tm[4] and tm[5]; the forward's
   // maps of the layers it reads back stay zero there.
-  CUtensorMap tm[6] = {};
-  const int w_slabs = kDgrad ? 1 : n_layers;
-  cudaError_t err = encode(&tm[0], in, d, n, 1);
+  CUtensorMap tm[8] = {};
+  cudaError_t err = encode(&tm[0], in, k0, n, 1);
   if (!kDgrad) {
     if (err == cudaSuccess) err = encode(&tm[1], out, d, n, 1);
     if (err == cudaSuccess)
@@ -638,8 +686,15 @@ int launch_wgmma(const void* in, const void* wb, const void* ws,
       err = encode(&tm[3], saved != nullptr ? saved : out, d, n,
                    saved != nullptr ? n_layers - 1 : 1);
   }
-  if (err == cudaSuccess) err = encode(&tm[4], wb, d, d, w_slabs);
-  if (err == cudaSuccess) err = encode(&tm[5], ws, d, d, w_slabs);
+  const int w0_slabs = w_base == 0 ? n_layers : 1;
+  if (err == cudaSuccess) err = encode(&tm[4], w0b, k0, d, w0_slabs);
+  if (err == cudaSuccess) err = encode(&tm[5], w0s, k0, d, w0_slabs);
+  tm[6] = tm[4];
+  tm[7] = tm[5];
+  if (w_base == 1 && n_layers > 1) {
+    if (err == cudaSuccess) err = encode(&tm[6], wb, d, d, n_layers - 1);
+    if (err == cudaSuccess) err = encode(&tm[7], ws, d, d, n_layers - 1);
+  }
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(k1_wgmma_kernel<kDgrad>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -647,18 +702,19 @@ int launch_wgmma(const void* in, const void* wb, const void* ws,
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + kHBM - 1) / kHBM);
   k1_wgmma_kernel<kDgrad><<<grid, kHThreads, kHSmem, stream>>>(
-      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5],
+      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], tm[6], tm[7],
       static_cast<const float*>(vec), static_cast<float*>(out),
-      static_cast<float*>(tmp), static_cast<float*>(saved), n, d, n_layers,
-      last_relu);
+      static_cast<float*>(tmp), static_cast<float*>(saved), n, k0, d,
+      n_layers, w_base, last_relu);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- wgrad
 // dW = act^T dz over a split of N, on the wgmma + TMA machinery above; see
 // the note at the top. A block owns one 128 x 128 tile of dW (rows m0.. of
-// act's columns, columns n0.. of dz's) and one split of N, K = N rows in
-// stages of kHBK = 32.
+// act's m columns, columns n0.. of dz's d) and one split of N, K = N rows
+// in stages of kHBK = 32. An entry layer's act is m = K wide: its last
+// tile row reads zeros past K (TMA fills them) and stores only rows < m.
 constexpr int kWThreads = 256;  // two consumer warpgroups; thread 0 loads
 constexpr int kWRaw = 4;      // raw stages: the act and dz boxes, by TMA
 constexpr int kWB = 3;        // dz stages transposed and split, K-major
@@ -805,16 +861,16 @@ __device__ __forceinline__ void wgrad_stage(
   ++it;
 }
 
-// Split z of N (rows [z * rows_per_split, + rows_per_split) of act and
-// dz): part_w[z][m][c] = sum over its rows k of act[k][m] dz[k][c] for the
-// block's 128 x 128 tile and, from the blocks of the first tile row,
-// part_b[z][c] = sum of dz[k][c]. Two warpgroups, 64 rows of the tile and
-// half of each dz stage's transpose each; thread 0 also issues the TMA
-// loads, kWRaw stages ahead.
+// Split z of N (rows [z * rows_per_split, + rows_per_split) of act [n, m]
+// and dz [n, d]): part_w[z][r][c] = sum over its rows k of act[k][r]
+// dz[k][c] for the block's 128 x 128 tile (rows r < m) and, from the
+// blocks of the first tile row, part_b[z][c] = sum of dz[k][c]. Two
+// warpgroups, 64 rows of the tile and half of each dz stage's transpose
+// each; thread 0 also issues the TMA loads, kWRaw stages ahead.
 __global__ void __launch_bounds__(kWThreads, 1)
 fused_mlp_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
                            const __grid_constant__ CUtensorMap tm_dz,
-                           float* part_w, float* part_b, int n, int d,
+                           float* part_w, float* part_b, int n, int m, int d,
                            int rows_per_split) {
   extern __shared__ unsigned char smem_raw[];
   WRing ring;
@@ -839,7 +895,7 @@ fused_mlp_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
   // warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
   const int r_lo = wg * 64 + (warp % 4) * 16 + g;
-  float* pw = part_w + (long long)blockIdx.z * d * d;
+  float* pw = part_w + (long long)blockIdx.z * m * d;
   float acc[64];
   uint32_t ab[2][4][4] = {}, as[2][4][4] = {};
   float col = 0.f;
@@ -865,6 +921,7 @@ fused_mlp_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        if (m0 + r_lo + 8 * h >= m) continue;
         float2* p = reinterpret_cast<float2*>(
             pw + (long long)(m0 + r_lo + 8 * h) * d + n0 + 8 * j + 2 * t);
         float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
@@ -886,12 +943,13 @@ fused_mlp_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap tm_act,
   }
 }
 
-// dw[e] = sum over s, in order, of part_w[s][e]; db likewise from part_b.
+// dw[e] = sum over s, in order, of part_w[s][e] (dw [m, d]); db likewise
+// from part_b.
 __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part_w,
                                             const float* __restrict__ part_b,
-                                            float* dw, float* db, int d,
-                                            int splits) {
-  const long long dd = (long long)d * d;
+                                            float* dw, float* db, int m,
+                                            int d, int splits) {
+  const long long dd = (long long)m * d;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < dd + d; e += (long long)gridDim.x * blockDim.x) {
     const float* src = e < dd ? part_w + e : part_b + (e - dd);
@@ -1522,24 +1580,36 @@ int launch_bf16_dgrad(const CUtensorMap (&tm)[4], int n, int d, int device,
 extern "C" {
 
 // Every array contiguous, 16-byte aligned, on `device`; d a multiple of
-// 128. Each entry point launches on `stream` without synchronising and
+// 128 (the f32 dgrad's output width and an entry layer's input width k of
+// 4). Each entry point launches on `stream` without synchronising and
 // returns the cudaError_t of the launch (0 = launched).
 
-// f32 forward: x [n, d]; w_big_t, w_small_t [n_layers, d, d], the
-// transposed split of W ([out, in], from snerf_tf32_split); b [n_layers,
-// d]; out [n, d] and, when n_layers > 1, either the scratch tmp [n, d] or
-// saved [n_layers - 1, n, d], which then keeps every layer's output but
-// the last (tmp is not used); out, tmp and saved distinct from x and each
-// other.
-int snerf_fused_mlp_fwd_f32(const void* x, const void* w_big_t,
+// f32 forward: x [n, k]; w_big_t, w_small_t the transposed split of the
+// square layers' W ([out, in], from snerf_tf32_split): [n_layers, d, d]
+// when w0_big_t is null (then k = d), else [n_layers - 1, d, d] (null
+// when n_layers is 1) after the entry layer's w0_big_t, w0_small_t [d,
+// k]; b [n_layers, d]; out [n, d] and, when n_layers > 1, either the
+// scratch tmp [n, d] or saved [n_layers - 1, n, d], which then keeps
+// every layer's output but the last (tmp is not used); out, tmp and saved
+// distinct from x and each other.
+int snerf_fused_mlp_fwd_f32(const void* x, const void* w0_big_t,
+                            const void* w0_small_t, const void* w_big_t,
                             const void* w_small_t, const void* b, void* out,
-                            void* tmp, void* saved, int n, int d,
+                            void* tmp, void* saved, int n, int k, int d,
                             int n_layers, int last_relu, int device,
                             void* stream) {
+  if (w0_big_t == nullptr) {
+    w0_big_t = w_big_t;
+    w0_small_t = w_small_t;
+  } else if (w_big_t == nullptr && n_layers != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (w0_big_t == nullptr || w0_small_t == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_wgmma<false>(x, w_big_t, w_small_t, b, out, tmp, saved, n,
-                             d, n_layers, last_relu,
+  return launch_wgmma<false>(x, w0_big_t, w0_small_t, w_big_t, w_small_t, b,
+                             out, tmp, saved, n, k, d, n_layers, last_relu,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -1557,78 +1627,84 @@ int snerf_fused_mlp_fwd_bf16(const void* x, const void* w, const void* b,
                          static_cast<cudaStream_t>(stream));
 }
 
-// The 3xTF32 split of w [n_layers, d, d] (d a multiple of 32): big_t,
-// small_t transposed per layer and, unless both are null, big, small in
-// w's layout.
+// The 3xTF32 split of w [n_layers, rows, cols]: big_t, small_t [n_layers,
+// cols, rows], transposed per layer, and, unless both are null, big,
+// small in w's layout.
 int snerf_tf32_split(const void* w, void* big, void* small, void* big_t,
-                     void* small_t, int n_layers, int d, int device,
-                     void* stream) {
-  if (d <= 0 || d % 32 != 0 || n_layers <= 0 || n_layers > 65535 ||
-      (big == nullptr) != (small == nullptr) || big_t == nullptr ||
-      small_t == nullptr)
+                     void* small_t, int n_layers, int rows, int cols,
+                     int device, void* stream) {
+  if (rows <= 0 || cols <= 0 || rows > 65535 * 32 || n_layers <= 0 ||
+      n_layers > 65535 || (big == nullptr) != (small == nullptr) ||
+      big_t == nullptr || small_t == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  tf32_split_kernel<<<dim3(d / 32, d / 32, n_layers), dim3(32, 8), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  tf32_split_kernel<<<dim3((cols + 31) / 32, (rows + 31) / 32, n_layers),
+                      dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<float*>(big),
       static_cast<float*>(small), static_cast<float*>(big_t),
-      static_cast<float*>(small_t), d);
+      static_cast<float*>(small_t), rows, cols);
   return (int)cudaGetLastError();
 }
 
 // The f32 backward's three kernels.
 //
-// dgrad: out [n, d] = (dz [n, d] W^T) * (mask [n, d] > 0), W [d, d]
+// dgrad: out [n, k] = (dz [n, d] W^T) * (mask [n, k] > 0), W [k, d]
 // ([in, out]) given as its split w_big, w_small (snerf_tf32_split, not
-// transposed); mask may be null (no mask). out distinct from dz.
+// transposed); k = d for a square layer, an entry layer's input width
+// (a multiple of 4) for its dx; mask may be null (no mask). out distinct
+// from dz.
 int snerf_fused_mlp_bwd_dgrad(const void* dz, const void* w_big,
                               const void* w_small, const void* mask,
-                              void* out, int n, int d, int device,
+                              void* out, int n, int d, int k, int device,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_wgmma<true>(dz, w_big, w_small, mask, out, nullptr, nullptr,
-                            n, d, 1, 0, static_cast<cudaStream_t>(stream));
+  return launch_wgmma<true>(dz, w_big, w_small, w_big, w_small, mask, out,
+                            nullptr, nullptr, n, d, k, 1, 0,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // wgrad: the partials of dW = act^T dz and db = colsum(dz) over `splits`
 // runs of rows_per_split rows (a multiple of 32, splits * rows_per_split
-// >= n): act, dz [n, d]; part_w [splits, d, d]; part_b [splits, d].
+// >= n): act [n, m] (m = d, or an entry layer's input width, a multiple of
+// 4), dz [n, d]; part_w [splits, m, d]; part_b [splits, d].
 int snerf_fused_mlp_bwd_wgrad(const void* act, const void* dz, void* part_w,
-                              void* part_b, int n, int d, int rows_per_split,
-                              int splits, int device, void* stream) {
-  if (d <= 0 || d % kHBN != 0 || n <= 0 || rows_per_split <= 0 ||
-      rows_per_split % kHBK != 0 || splits <= 0 || splits > 65535 ||
-      (long long)splits * rows_per_split < n)
+                              void* part_b, int n, int m, int d,
+                              int rows_per_split, int splits, int device,
+                              void* stream) {
+  if (d <= 0 || d % kHBN != 0 || m <= 0 || m % 4 != 0 || n <= 0 ||
+      rows_per_split <= 0 || rows_per_split % kHBK != 0 || splits <= 0 ||
+      splits > 65535 || (long long)splits * rows_per_split < n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   CUtensorMap tm[2] = {};
-  if (err == cudaSuccess) err = encode(&tm[0], act, d, n, 1, 32);
+  if (err == cudaSuccess) err = encode(&tm[0], act, m, n, 1, 32);
   if (err == cudaSuccess) err = encode(&tm[1], dz, d, n, 1, 32);
   if (err == cudaSuccess) err = set_smem(fused_mlp_bwd_wgrad_kernel, kWSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(d / kHBN, d / kHBM, splits);
+  const dim3 grid(d / kHBN, (m + kHBM - 1) / kHBM, splits);
   fused_mlp_bwd_wgrad_kernel<<<grid, kWThreads, kWSmem,
                                static_cast<cudaStream_t>(stream)>>>(
       tm[0], tm[1], static_cast<float*>(part_w), static_cast<float*>(part_b),
-      n, d, rows_per_split);
+      n, m, d, rows_per_split);
   return (int)cudaGetLastError();
 }
 
-// reduce: dw [d, d] and db [d] = the sums over s of part_w[s], part_b[s].
+// reduce: dw [m, d] and db [d] = the sums over s of part_w[s] [m, d] and
+// part_b[s] [d].
 int snerf_fused_mlp_bwd_reduce(const void* part_w, const void* part_b,
-                               void* dw, void* db, int d, int splits,
+                               void* dw, void* db, int m, int d, int splits,
                                int device, void* stream) {
-  if (d <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || d <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)d * d + d;
+  const long long total = (long long)m * d + d;
   const unsigned grid = (unsigned)((total + 255) / 256);
   fused_mlp_bwd_reduce_kernel<<<grid, 256, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_w), static_cast<const float*>(part_b),
-      static_cast<float*>(dw), static_cast<float*>(db), d, splits);
+      static_cast<float*>(dw), static_cast<float*>(db), m, d, splits);
   return (int)cudaGetLastError();
 }
 

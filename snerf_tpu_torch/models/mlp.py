@@ -12,7 +12,10 @@ weight and bias to it per call (flax's `nn.Dense(dtype=...)`), so the
 gradients reach the float32 parameters through the casts. The density,
 semantic and rgb heads run in float32 on the float32 cast of their input.
 Runs of uniform width x width layers in the trunk go through one
-`stack_fn` call each (the fused-MLP kernel by default); the other layers
+`stack_fn` call each (the fused-MLP kernel by default). In float32 a
+layer of another input width (a trunk's first layer, the layer after a
+skip-cat) opens a run as its entry layer where the kernel takes it
+(`_opens_run`), and the bottleneck is a run of its own; the other layers
 are plain matmuls (cuBLAS in bf16 too: JAX runs them in XLA).
 """
 
@@ -54,43 +57,71 @@ def linear(layer: nn.Linear, h: torch.Tensor,
 
 
 def _stacked(blocks, dtype=torch.float32):
-  """[L, D, D] ([in, out]) weights and [L, 1, D] biases of uniform blocks,
-  cast to dtype. Differentiable: under autograd the stack's grads flow
-  back through the cast, torch.stack and .t() to each block's weight and
-  bias."""
-  w = torch.stack([b.linear.weight.t() for b in blocks]).to(dtype)
-  bias = torch.stack([b.linear.bias[None] for b in blocks]).to(dtype)
-  return w.contiguous(), bias.contiguous()
+  """A run's stack_fn operands, cast to dtype: the entry layer's [K, D]
+  ([in, out]) weight where the first block is not square (else None),
+  the square blocks' [L, D, D] weights ([0, D, D] for none) and every
+  block's [L', 1, D] biases. Differentiable: under autograd the grads
+  flow back through the cast, torch.stack and .t() to each block's weight
+  and bias."""
+  lins = [b.linear for b in blocks]
+  entry = lins[0].in_features != lins[0].out_features
+  d = lins[-1].out_features
+  w_in = lins[0].weight.t().to(dtype).contiguous() if entry else None
+  square = [lin.weight.t() for lin in lins[entry:]]
+  w = torch.stack(square) if square else lins[0].weight.new_empty(0, d, d)
+  bias = torch.stack([lin.bias[None] for lin in lins])
+  return w_in, w.to(dtype).contiguous(), bias.to(dtype).contiguous()
+
+
+def _opens_run(lin: nn.Linear, dtype: torch.dtype) -> bool:
+  """Whether a layer of another input width opens a stack_fn run as its
+  entry layer: float32 (f32 on the library runs on the FP32 pipes, the
+  kernel's 3xTF32 on the tensor cores; bf16 on the library already runs
+  on the tensor cores at full rate), its width D a multiple of 128 (the
+  kernel's f32 tiles) and its input width K of 4 (TMA's 16-byte row
+  stride)."""
+  return (dtype == torch.float32 and lin.out_features % 128 == 0
+          and lin.in_features % 4 == 0)
 
 
 def _run_trunk(blocks, x, stack_fn: StackFn, skip_after=(),
                dtype: torch.dtype = torch.float32):
   """Apply DenseBlocks in `dtype` in order, sending each maximal run of
-  square blocks through one stack_fn call and concatenating the trunk
-  input x (in its own dtype, promoted as jnp.concatenate promotes) after
-  every layer index in skip_after."""
+  square blocks, opened by an entry layer where `_opens_run` allows, through
+  one stack_fn call and concatenating the trunk input x (in its own dtype,
+  promoted as jnp.concatenate promotes) after every layer index in
+  skip_after."""
   inputs = x
   h = x
-  run = []
+  run = []   # a run's blocks; the first may be its entry layer
 
   def flush(h):
     if run:
-      w, b = _stacked(run, dtype)
+      w_in, w, b = _stacked(run, dtype)
       lead = h.shape[:-1]
       h = h.reshape(-1, h.shape[-1]).to(dtype).contiguous()
       with span("snerf.k1"):
-        h = stack_fn(h, w, b, last_relu=True)
+        if w_in is None:
+          h = stack_fn(h, w, b, last_relu=True)
+        else:
+          with span("snerf.k1.entry"):
+            h = stack_fn(h, w, b, last_relu=True, w_in=w_in)
       h = h.reshape(*lead, -1)
       run.clear()
     return h
 
   for i, block in enumerate(blocks):
     lin = block.linear
-    square = lin.in_features == lin.out_features == h.shape[-1]
-    if square:
+    width = run[-1].linear.out_features if run else h.shape[-1]
+    if lin.in_features == lin.out_features == width:
+      run.append(block)
+    elif _opens_run(lin, dtype):
+      h = flush(h)
       run.append(block)
     else:
-      h = F.relu(linear(lin, flush(h), dtype))
+      h = flush(h)
+      with span("snerf.mlp.dense"):
+        h = F.relu(linear(lin, h, dtype))
     if i in skip_after:
       h = torch.cat([flush(h), inputs], dim=-1)
   return flush(h)
@@ -147,17 +178,28 @@ class NerfMLP(nn.Module):
     raw_density = self.density_layer(h.float())
     raw_semantic = None
     if self.semantic_layer is not None:
-      hidden, head = self.semantic_layer
-      raw_semantic = head(F.relu(linear(hidden.linear, h, dt)).float())
+      dense, head = self.semantic_layer
+      with span("snerf.mlp.dense"):
+        hidden = F.relu(linear(dense.linear, h, dt))
+      raw_semantic = head(hidden.float())
     if condition is not None:
-      bottleneck = F.relu(linear(self.bottleneck_layer.linear, h, dt))
+      # float32: a one-layer run on stack_fn, as every square trunk layer;
+      # bfloat16: the library, as a layer outside the square runs
+      # (`_opens_run`), since a lone layer keeps no band across layers
+      if dt == torch.float32:
+        bottleneck = _run_trunk([self.bottleneck_layer], h, self.stack_fn,
+                                dtype=dt)
+      else:
+        with span("snerf.mlp.dense"):
+          bottleneck = F.relu(linear(self.bottleneck_layer.linear, h, dt))
       condition = condition.to(dt)
       if condition.dim() == bottleneck.dim() - 1:
         condition = condition[..., None, :].expand(
             *bottleneck.shape[:-1], condition.shape[-1])
       h = torch.cat([bottleneck, condition], dim=-1)
       for block in self.cond_layers:
-        h = F.relu(linear(block.linear, h, dt))
+        with span("snerf.mlp.dense"):
+          h = F.relu(linear(block.linear, h, dt))
     raw_rgb = self.rgb_layer(h.float())
     return raw_rgb, raw_density, raw_semantic
 

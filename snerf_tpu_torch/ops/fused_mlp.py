@@ -15,7 +15,11 @@ float32, the split), and the backward runs, per layer, the dgrad kernel
 (act^T dz and the bias sums on wgmma, N split across blocks) with its
 fixed-order reduce; in bfloat16 dz is bf16 between layers and dW, db are
 rounded to bf16 once after the reduce, as `fused_mlp_bwd_plain` says.
-The kernels are built and loaded by `ops/_cuda.py`.
+In float32 a run may open with an entry layer `w_in` [K, D] of another
+input width (a trunk's first layer, the layer after a skip-cat; K a
+multiple of 4): the forward reads x [N, K] in the same launch, dgrad gives
+dx [N, K] and wgrad dW_in [K, D]. The kernels are built and loaded by
+`ops/_cuda.py`.
 """
 
 from __future__ import annotations
@@ -47,19 +51,19 @@ _WAVES_BF16 = 64
 
 def _bind(lib):
   lib.snerf_fused_mlp_fwd_f32.argtypes = (
-      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_fwd_f32.restype = ctypes.c_int
   lib.snerf_fused_mlp_fwd_bf16.argtypes = (
       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_fwd_bf16.restype = ctypes.c_int
   lib.snerf_tf32_split.argtypes = (
-      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
   lib.snerf_tf32_split.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_dgrad.argtypes = (
-      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_bwd_dgrad.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_wgrad.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_bwd_wgrad.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_dgrad_bf16.argtypes = (
       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -68,7 +72,7 @@ def _bind(lib):
       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_bwd_wgrad_bf16.restype = ctypes.c_int
   lib.snerf_fused_mlp_bwd_reduce.argtypes = (
-      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
   lib.snerf_fused_mlp_bwd_reduce.restype = ctypes.c_int
 
 
@@ -80,18 +84,30 @@ def _stream(t):
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_shapes(x, w_stack, b_stack):
+def _check_shapes(x, w_stack, b_stack, w_in=None):
+  """(N, D, L) of a run: x [N, D], w_stack [L, D, D], b_stack [L, 1, D];
+  with an entry layer w_in [K, D], x is [N, K] and w_stack [L - 1, D,
+  D]."""
   if x.dim() != 2:
     raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
   n, d = x.shape
+  if w_in is not None:
+    if w_in.dim() != 2 or w_in.shape[0] != d:
+      raise ValueError(f"w_in must be [{d}, D], got {tuple(w_in.shape)}")
+    d = w_in.shape[1]
   if w_stack.dim() != 3 or tuple(w_stack.shape[1:]) != (d, d):
     raise ValueError(f"w_stack must be [L, {d}, {d}], got "
                      f"{tuple(w_stack.shape)}")
-  n_layers = w_stack.shape[0]
-  if tuple(b_stack.shape) != (n_layers, 1, d):
+  n_layers = w_stack.shape[0] + (w_in is not None)
+  if n_layers == 0 or tuple(b_stack.shape) != (n_layers, 1, d):
     raise ValueError(f"b_stack must be [{n_layers}, 1, {d}], got "
                      f"{tuple(b_stack.shape)}")
   return n, d, n_layers
+
+
+def _layer_weights(w_stack, w_in):
+  """Each layer's weight [in, out] in order: w_in first when given."""
+  return ([] if w_in is None else [w_in]) + list(w_stack.unbind(0))
 
 
 def _check_cuda(what, x, *others):
@@ -117,19 +133,42 @@ def _check_cuda(what, x, *others):
     raise ValueError(f"{what}: N={x.numel() // d} rows exceeds {_MAX_ROWS}")
 
 
+def _check_entry(what, x, w_in):
+  """The card's preconditions on a float32 [N, K] tensor x whose K-wide
+  rows a kernel reads or writes by TMA (an entry layer's input, its dx, an
+  entry wgrad's act) beside its [K, D] weight or [N, D] partner w_in:
+  float32, one device, contiguous, 16-byte aligned, K a multiple of 4
+  (TMA's 16-byte row stride)."""
+  if x.dtype != torch.float32 or w_in.dtype != torch.float32:
+    raise ValueError(f"{what}: an entry layer runs in float32 only, got "
+                     f"{x.dtype}, {w_in.dtype}")
+  if w_in.device != x.device:
+    raise ValueError(f"{what}: tensors on {w_in.device} and {x.device}")
+  if not (x.is_contiguous() and w_in.is_contiguous()):
+    raise ValueError(f"{what}: inputs must be contiguous")
+  if x.shape[1] % 4:
+    raise ValueError(f"{what}: an entry layer's K={x.shape[1]} must be a "
+                     "multiple of 4")
+  if x.data_ptr() % 16 or w_in.data_ptr() % 16:
+    raise ValueError(f"{what}: inputs must be 16-byte aligned")
+  if x.shape[0] > _MAX_ROWS:
+    raise ValueError(f"{what}: N={x.shape[0]} rows exceeds {_MAX_ROWS}")
+
+
 def _acc_dtype(dtype):
   """float32 accumulation, float64 for float64 inputs (gradcheck)."""
   return torch.promote_types(dtype, torch.float32)
 
 
-def _plain_layers(x, w_stack, b_stack, last_relu):
+def _plain_layers(x, w_stack, b_stack, last_relu, w_in=None):
   """Every layer's output, as the kernel computes it: accumulation in
   float32 (float64 for float64 inputs), cast to x.dtype after each."""
   acc = _acc_dtype(x.dtype)
-  n_layers = w_stack.shape[0]
+  ws = _layer_weights(w_stack, w_in)
+  n_layers = len(ws)
   outs, h = [], x
   for i in range(n_layers):
-    z = torch.matmul(h.to(acc), w_stack[i].to(acc)) + b_stack[i].to(acc)
+    z = torch.matmul(h.to(acc), ws[i].to(acc)) + b_stack[i].to(acc)
     if i < n_layers - 1 or last_relu:
       z = torch.relu(z)
     h = z.to(x.dtype)
@@ -137,15 +176,17 @@ def _plain_layers(x, w_stack, b_stack, last_relu):
   return outs
 
 
-def fused_mlp_plain(x, w_stack, b_stack, last_relu: bool = True):
+def fused_mlp_plain(x, w_stack, b_stack, last_relu: bool = True,
+                    w_in=None):
   """The kernel's computation as a plain PyTorch loop: f32 accumulation,
-  cast to x.dtype after every layer."""
-  _check_shapes(x, w_stack, b_stack)
-  return _plain_layers(x, w_stack, b_stack, last_relu)[-1]
+  cast to x.dtype after every layer; w_in [K, D] the entry layer, if
+  any, before w_stack's."""
+  _check_shapes(x, w_stack, b_stack, w_in)
+  return _plain_layers(x, w_stack, b_stack, last_relu, w_in)[-1]
 
 
 def fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
-                        last_relu: bool = True):
+                        last_relu: bool = True, w_in=None):
   """The backward as a plain PyTorch loop, accumulating in float32
   (float64 for float64 inputs).
 
@@ -167,12 +208,15 @@ def fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
 
   saved: the L layer outputs of the forward (a sequence), or None to
   recompute them as the JAX backward does. g: the output's gradient.
-  Returns (dx, dw_stack, db_stack) in the dtypes of x, w_stack, b_stack.
+  Returns (dx, dw_stack, db_stack, dw_in) in the dtypes of x, w_stack,
+  b_stack and w_in; with an entry layer w_in [K, D] dx is [N, K], without
+  one dw_in is None.
   """
-  n_layers = w_stack.shape[0]
+  ws = _layer_weights(w_stack, w_in)
+  n_layers = len(ws)
   acc = _acc_dtype(x.dtype)
   if saved is None:
-    saved = _plain_layers(x, w_stack, b_stack, last_relu)
+    saved = _plain_layers(x, w_stack, b_stack, last_relu, w_in)
   acts = [x, *saved]
   dh = g.to(acc)
   dws, dbs = [], []
@@ -181,11 +225,16 @@ def fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
     if relu:
       dh = dh * (acts[i + 1] > 0)
     a = acts[i].to(acc)
-    dws.append((a.t() @ dh).to(w_stack.dtype))
+    dws.append((a.t() @ dh).to(ws[i].dtype))
     dbs.append(dh.sum(dim=0, keepdim=True).to(b_stack.dtype))
     # rounded to x's dtype between layers: a no-op in f32 and f64
-    dh = (dh @ w_stack[i].t().to(acc)).to(x.dtype).to(acc)
-  return dh.to(x.dtype), torch.stack(dws[::-1]), torch.stack(dbs[::-1])
+    dh = (dh @ ws[i].t().to(acc)).to(x.dtype).to(acc)
+  dws = dws[::-1]
+  entry = w_in is not None
+  dw_stack = (torch.stack(dws[entry:]) if n_layers > entry
+              else torch.zeros_like(w_stack))
+  return (dh.to(x.dtype), dw_stack, torch.stack(dbs[::-1]),
+          dws[0] if entry else None)
 
 
 def _tf32_rna(v):
@@ -221,62 +270,77 @@ def tf32_split_plain(w):
 
 
 def tf32_split(w_stack, keep: bool = True):
-  """The 3xTF32 split of w_stack [L, D, D] float32 for the kernels:
-  (big, small, big_t, small_t). (big_t, small_t) are transposed per
-  layer, [L, out, in] (the forward's B operand); (big, small) keep
-  w_stack's layout (dgrad's B operand) when `keep`, else are None. CUDA
-  tensors launch `tf32_split_kernel` (one launch, counted in
-  `tf32_split.launches`); CPU tensors run `tf32_split_plain`."""
-  if w_stack.dim() != 3 or w_stack.shape[1] != w_stack.shape[2]:
-    raise ValueError(f"tf32_split: w_stack must be [L, D, D], got "
+  """The 3xTF32 split of w_stack [L, K, D] float32 for the kernels (the
+  square layers' [L, D, D], or an entry layer's [1, K, D]): (big, small,
+  big_t, small_t). (big_t, small_t) are transposed per layer, [L, out,
+  in] (the forward's B operand); (big, small) keep w_stack's layout
+  (dgrad's B operand) when `keep`, else are None. CUDA tensors launch
+  `tf32_split_kernel` (one launch, counted in `tf32_split.launches`); CPU
+  tensors run `tf32_split_plain`."""
+  if w_stack.dim() != 3 or 0 in w_stack.shape:
+    raise ValueError(f"tf32_split: w_stack must be [L, K, D], got "
                      f"{tuple(w_stack.shape)}")
   if w_stack.device.type == "cpu":
     big, small = tf32_split_plain(w_stack)
     return (*((big, small) if keep else (None, None)),
             big.transpose(1, 2).contiguous(),
             small.transpose(1, 2).contiguous())
-  _check_cuda("tf32_split", w_stack)
   if w_stack.dtype != torch.float32:
     raise ValueError(f"tf32_split: float32 only, got {w_stack.dtype}")
+  if not w_stack.is_contiguous() or w_stack.data_ptr() % 16:
+    raise ValueError("tf32_split: w_stack must be contiguous and 16-byte "
+                     "aligned")
+  n_layers, rows, cols = w_stack.shape
   outs = [torch.empty_like(w_stack) if want else None
-          for want in (keep, keep, True, True)]
-  n_layers, d = w_stack.shape[:2]
+          for want in (keep, keep)]
+  outs += [w_stack.new_empty(n_layers, cols, rows) for _ in range(2)]
   lib = _lib()
   err = lib.snerf_tf32_split(
-      w_stack.data_ptr(), *(None if t is None else t.data_ptr() for t in outs),
-      n_layers, d, w_stack.device.index, _stream(w_stack))
-  _cuda.check_launch(lib, err, f"tf32_split at L={n_layers} D={d}")
+      w_stack.data_ptr(), *(_ptr(t) for t in outs), n_layers, rows, cols,
+      w_stack.device.index, _stream(w_stack))
+  _cuda.check_launch(lib, err, f"tf32_split at {tuple(w_stack.shape)}")
   tf32_split.launches += 1
   return tuple(outs)
 
 
-def _launch_fwd(x, w_stack, b_stack, last_relu, keep: bool, split_t=None):
+def _launch_fwd(x, w_stack, b_stack, last_relu, keep: bool, split_t=None,
+                w_in=None, split_in_t=None):
   """One forward launch. keep=True also returns the layers before the
   last as a [L-1, N, D] tensor (None for L = 1). float32 runs on the
   transposed split (big_t, small_t) of `tf32_split`, made here when
-  `split_t` is None; bfloat16 on `fused_mlp_fwd_bf16`."""
-  n, d, n_layers = _check_shapes(x, w_stack, b_stack)
+  `split_t` is None, and with an entry layer w_in [K, D] on its own,
+  `split_in_t` ([D, K] each; made here when None); bfloat16 on
+  `fused_mlp_fwd_bf16`."""
+  n, d, n_layers = _check_shapes(x, w_stack, b_stack, w_in)
   f32 = x.dtype == torch.float32
-  out = torch.empty_like(x)
+  out = x.new_empty(n, d)
   saved = tmp = None
   if n_layers > 1:
     if keep:
       saved = x.new_empty(n_layers - 1, n, d)
     else:
-      tmp = torch.empty_like(x)  # layers before the last alternate here
+      tmp = torch.empty_like(out)  # layers before the last alternate here
   if n == 0:
     return out, saved
   if not f32:
+    if w_in is not None:
+      raise ValueError("fused_mlp: an entry layer runs in float32 only")
     fused_mlp_fwd_bf16(x, w_stack, b_stack, out, tmp, saved, last_relu)
     return out, saved
-  if split_t is None:
+  if split_t is None and w_stack.shape[0]:
     split_t = tf32_split(w_stack, keep=False)[2:]
+  if split_in_t is None and w_in is not None:
+    split_in_t = [t[0] for t in tf32_split(w_in[None], keep=False)[2:]]
+  split_t = split_t or (None, None)
+  split_in_t = split_in_t or (None, None)
   lib = _lib()
   err = lib.snerf_fused_mlp_fwd_f32(
-      x.data_ptr(), split_t[0].data_ptr(), split_t[1].data_ptr(),
-      b_stack.data_ptr(), out.data_ptr(), _ptr(tmp), _ptr(saved), n, d,
-      n_layers, int(bool(last_relu)), x.device.index, _stream(x))
-  _cuda.check_launch(lib, err, f"fused_mlp at N={n} D={d} L={n_layers}")
+      x.data_ptr(), _ptr(split_in_t[0]), _ptr(split_in_t[1]),
+      _ptr(split_t[0]), _ptr(split_t[1]), b_stack.data_ptr(),
+      out.data_ptr(), _ptr(tmp), _ptr(saved), n, x.shape[1], d, n_layers,
+      int(bool(last_relu)), x.device.index, _stream(x))
+  _cuda.check_launch(lib, err, f"fused_mlp at N={n} K={x.shape[1]} D={d} "
+                     f"L={n_layers}")
   fused_mlp.launches += 1
   return out, saved
 
@@ -308,34 +372,39 @@ def fused_mlp_fwd_bf16(x, w_stack, b_stack, out, tmp, saved, last_relu):
 
 def fused_mlp_bwd_dgrad(dz, w_big, w_small, mask, out):
   """out = (dz @ w.T) * (mask > 0) on the card (no mask when mask is
-  None): dz, mask, out [N, D] float32; w [D, D] ([in, out]) given as its
-  split (w_big, w_small) from `tf32_split` (not transposed)."""
-  _check_cuda("fused_mlp_bwd_dgrad", dz, w_big, w_small, out,
-              *(() if mask is None else (mask,)))
+  None): dz [N, D] float32; w [K, D] ([in, out]: K = D, or an entry
+  layer's input width, a multiple of 4) given as its split (w_big,
+  w_small) from `tf32_split` (not transposed); mask, out [N, K]."""
+  _check_cuda("fused_mlp_bwd_dgrad", dz, w_big, w_small)
   n, d = dz.shape
+  k = w_big.shape[0]
+  if tuple(w_big.shape) != (k, d) or tuple(out.shape) != (n, k):
+    raise ValueError(f"fused_mlp_bwd_dgrad: w [K, {d}] and out [{n}, K], "
+                     f"got {tuple(w_big.shape)} and {tuple(out.shape)}")
+  for t in (out, *(() if mask is None else (mask,))):
+    _check_entry("fused_mlp_bwd_dgrad", t, w_small)
   lib = _lib()
   err = lib.snerf_fused_mlp_bwd_dgrad(
-      dz.data_ptr(), w_big.data_ptr(), w_small.data_ptr(),
-      None if mask is None else mask.data_ptr(), out.data_ptr(), n, d,
-      dz.device.index, _stream(dz))
-  _cuda.check_launch(lib, err, f"fused_mlp_bwd_dgrad at N={n} D={d}")
+      dz.data_ptr(), w_big.data_ptr(), w_small.data_ptr(), _ptr(mask),
+      out.data_ptr(), n, d, k, dz.device.index, _stream(dz))
+  _cuda.check_launch(lib, err, f"fused_mlp_bwd_dgrad at N={n} D={d} K={k}")
   fused_mlp_bwd_dgrad.launches += 1
   return out
 
 
 def wgrad_splits(n: int, d: int, sm_count: int, dtype=torch.float32,
-                 waves: int = 0):
-  """(rows_per_split, splits) of the wgrad kernel of `dtype`'s split of N:
-  enough blocks for `waves` (0: _WAVES, bf16 _WAVES_BF16) waves of one
-  block per SM over its output tiles, 128 x 128 (bf16: 128 x 256; 16 x
-  132 = 2,112 blocks is 33 splits of the 64 f32 tiles at D = 1024, no
-  partial wave), each split at least _MIN_SPLIT_ROWS rows unless N is
-  shorter, a multiple of the kernel's k-depth (_BK, bf16 _BK_BF16), and
-  at most 65,535 splits."""
+                 waves: int = 0, m: int = 0):
+  """(rows_per_split, splits) of the wgrad kernel of `dtype`'s split of N
+  for a [m, d] dW (m 0: d; an f32 entry layer's m = K): enough blocks for
+  `waves` (0: _WAVES, bf16 _WAVES_BF16) waves of one block per SM over its
+  output tiles, 128 x 128 (bf16: 128 x 256; 16 x 132 = 2,112 blocks is 33
+  splits of the 64 f32 tiles at D = 1024, no partial wave), each split at
+  least _MIN_SPLIT_ROWS rows unless N is shorter, a multiple of the
+  kernel's k-depth (_BK, bf16 _BK_BF16), and at most 65,535 splits."""
   bf16 = dtype == torch.bfloat16
   bk, default_waves = (_BK_BF16, _WAVES_BF16) if bf16 else (_BK, _WAVES)
   waves = waves or default_waves
-  tiles = (d // 128) * (d // (_BF16_TILE_COLS if bf16 else 128))
+  tiles = -(-(m or d) // 128) * (d // (_BF16_TILE_COLS if bf16 else 128))
   splits = -(-waves * sm_count // tiles)
   splits = max(1, min(splits, -(-n // _MIN_SPLIT_ROWS), 65535))
   rows = -(-n // splits)
@@ -345,15 +414,22 @@ def wgrad_splits(n: int, d: int, sm_count: int, dtype=torch.float32,
 
 def fused_mlp_bwd_wgrad(act, dz, part_w, part_b, rows_per_split):
   """The partials of act.T @ dz and dz.sum(0) over splits of N rows:
-  act, dz [N, D] float32; part_w [S, D, D]; part_b [S, D]. One launch of
-  the TMA-fed wgmma kernel, a block per 128 x 128 tile and split."""
-  _check_cuda("fused_mlp_bwd_wgrad", act, dz, part_w, part_b)
-  n, d = act.shape
+  act [N, M] (M = D, or an entry layer's input width, a multiple of 4),
+  dz [N, D] float32; part_w [S, M, D]; part_b [S, D]. One launch of the
+  TMA-fed wgmma kernel, a block per 128 x 128 tile and split."""
+  _check_cuda("fused_mlp_bwd_wgrad", dz, part_w, part_b)
+  _check_entry("fused_mlp_bwd_wgrad", act, dz)
+  n, d = dz.shape
+  m = act.shape[1]
+  if act.shape[0] != n or tuple(part_w.shape[1:]) != (m, d):
+    raise ValueError(f"fused_mlp_bwd_wgrad: act [{n}, M], part_w [S, M, "
+                     f"{d}], got {tuple(act.shape)}, {tuple(part_w.shape)}")
   lib = _lib()
   err = lib.snerf_fused_mlp_bwd_wgrad(
       act.data_ptr(), dz.data_ptr(), part_w.data_ptr(), part_b.data_ptr(),
-      n, d, rows_per_split, part_w.shape[0], act.device.index, _stream(act))
-  _cuda.check_launch(lib, err, f"fused_mlp_bwd_wgrad at N={n} D={d}")
+      n, m, d, rows_per_split, part_w.shape[0], act.device.index,
+      _stream(act))
+  _cuda.check_launch(lib, err, f"fused_mlp_bwd_wgrad at N={n} M={m} D={d}")
   fused_mlp_bwd_wgrad.launches += 1
 
 
@@ -395,130 +471,181 @@ def fused_mlp_bwd_wgrad_bf16(act, dz, part_w, part_b, rows_per_split):
 
 
 def fused_mlp_bwd_reduce(part_w, part_b, dw, db):
-  """dw [D, D] = part_w.sum(0) and db [D] = part_b.sum(0), summed in
+  """dw [M, D] = part_w.sum(0) and db [D] = part_b.sum(0), summed in
   split order."""
   _check_cuda("fused_mlp_bwd_reduce", part_w, part_b, dw, db)
   splits, d = part_b.shape
+  m = part_w.shape[1]
   lib = _lib()
   err = lib.snerf_fused_mlp_bwd_reduce(
-      part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(), d,
-      splits, part_w.device.index, _stream(part_w))
+      part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(), m,
+      d, splits, part_w.device.index, _stream(part_w))
   _cuda.check_launch(lib, err, f"fused_mlp_bwd_reduce at D={d}")
   fused_mlp_bwd_reduce.launches += 1
 
 
 def fused_mlp_bwd(x, w_stack, b_stack, saved, g, split,
-                  last_relu: bool = True, need_dx: bool = True):
+                  last_relu: bool = True, need_dx: bool = True, w_in=None,
+                  split_in=None):
   """The backward on the card: the kernels' counterpart of
   `fused_mlp_bwd_plain`, float32 or bfloat16. saved: the L layer outputs
-  of the forward; split: in float32 w_stack's (big, small) from
-  `tf32_split`, in bfloat16 None (the kernels read w_stack). dW and db
-  are summed in float32 and, in bfloat16, rounded once at the end.
-  Returns (dx or None, dw_stack, db_stack) in the dtypes of x, w_stack,
-  b_stack."""
-  n, d, n_layers = _check_shapes(x, w_stack, b_stack)
-  _check_cuda("fused_mlp_bwd", x, w_stack, b_stack, g, *saved)
+  of the forward; g the output's gradient, which may be a strided view
+  where last_relu (the ReLU's backward gathers it into dz); split: in
+  float32 w_stack's (big, small) from `tf32_split` (None for an empty
+  stack), in bfloat16 None (the kernels read w_stack). With an entry layer
+  (float32) w_in [K, D] and its split split_in ([K, D] each): x is [N, K].
+  dW and db are summed in float32 and, in bfloat16, rounded once at the
+  end. Beside the outputs it holds at most two [N, D] buffers (one for a
+  single layer), the second made only when needed and freed before dx is
+  made. Returns (dx or None, dw_stack, db_stack, dw_in or None) in the
+  dtypes of x, w_stack, b_stack and w_in."""
+  n, d, n_layers = _check_shapes(x, w_stack, b_stack, w_in)
+  if not last_relu:
+    g = g.contiguous()
+  _check_cuda("fused_mlp_bwd", saved[-1], w_stack, b_stack, *saved,
+              *(() if w_in is not None else (x,)),
+              *(() if last_relu else (g,)))
+  if g.shape != saved[-1].shape or g.dtype != x.dtype or g.device != x.device:
+    raise ValueError(f"fused_mlp_bwd: g must be [{n}, {d}] {x.dtype} on "
+                     f"{x.device}, got {tuple(g.shape)} {g.dtype} {g.device}")
   bf16 = x.dtype == torch.bfloat16
-  if bf16 != (split is None):
+  if bf16 != (split is None and split_in is None) or (
+      (w_in is None) != (split_in is None)):
     raise ValueError("fused_mlp_bwd: float32 takes the weights' split, "
                      "bfloat16 none")
+  entry = w_in is not None
+  if entry:
+    _check_entry("fused_mlp_bwd", x, w_in)
   dw = torch.empty(w_stack.shape, dtype=torch.float32, device=x.device)
   db = torch.empty(b_stack.shape, dtype=torch.float32, device=x.device)
-  dx = torch.empty_like(x) if need_dx else None
+  dw_in = (torch.empty(w_in.shape, dtype=torch.float32, device=x.device)
+           if entry else None)
+  dx = None
   if n == 0:
-    dw.zero_()
-    db.zero_()
-    return (dx, dw.to(w_stack.dtype), db.to(b_stack.dtype))
+    for t in (dw, db, dw_in):
+      if t is not None:
+        t.zero_()
+    dx = torch.empty_like(x) if need_dx else None
+    return dx, dw.to(w_stack.dtype), db.to(b_stack.dtype), dw_in
   sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-  rows, splits = wgrad_splits(n, d, sm_count, x.dtype)
-  part_w = dw.new_empty(splits, d, d)
-  part_b = dw.new_empty(splits, d)
-  bufs = [torch.empty_like(x), torch.empty_like(x)]
+  bufs = [torch.empty_like(saved[-1])]
   wgrad = fused_mlp_bwd_wgrad_bf16 if bf16 else fused_mlp_bwd_wgrad
-  if bf16:
-    dgrad = lambda dz, i, mask, out: fused_mlp_bwd_dgrad_bf16(
-        dz, w_stack[i], mask, out)
-  else:
-    dgrad = lambda dz, i, mask, out: fused_mlp_bwd_dgrad(
-        dz, split[0][i], split[1][i], mask, out)
-  dz = torch.mul(g, saved[-1] > 0, out=bufs[0]) if last_relu else g
+
+  def dgrad(dz, i, mask, out):
+    if bf16:
+      return fused_mlp_bwd_dgrad_bf16(dz, w_stack[i], mask, out)
+    w = split_in if entry and i == 0 else (t[i - entry] for t in split)
+    return fused_mlp_bwd_dgrad(dz, *w, mask, out)
+
+  # the last ReLU's backward, g where the output is > 0, with no mask
+  # tensor and no copy of a strided g
+  dz = (torch.ops.aten.threshold_backward.grad_input(
+      g, saved[-1], 0, grad_input=bufs[0]) if last_relu else g)
+  part = None
   for i in range(n_layers - 1, -1, -1):
     act = x if i == 0 else saved[i - 1]
+    m = act.shape[1]
+    if part is None or part[1].shape[1] != m:
+      part = None   # the square layers' partials go before the entry's
+      rows, splits = wgrad_splits(n, d, sm_count, x.dtype, m=m)
+      part = (rows, dw.new_empty(splits, m, d), dw.new_empty(splits, d))
+    rows, part_w, part_b = part
     wgrad(act, dz, part_w, part_b, rows)
-    fused_mlp_bwd_reduce(part_w, part_b, dw[i], db[i, 0])
+    fused_mlp_bwd_reduce(part_w, part_b,
+                         dw_in if entry and i == 0 else dw[i - entry],
+                         db[i, 0])
     if i > 0:
+      if dz is bufs[0] and len(bufs) == 1:
+        bufs.append(torch.empty_like(bufs[0]))
       nxt = bufs[1] if dz is bufs[0] else bufs[0]
       dz = dgrad(dz, i, act, nxt)
     elif need_dx:
-      dgrad(dz, 0, None, dx)
-  return dx, dw.to(w_stack.dtype), db.to(b_stack.dtype)
+      bufs = None   # the spare buffer goes before dx is allocated
+      dx = dgrad(dz, 0, None, torch.empty_like(x))
+  return dx, dw.to(w_stack.dtype), db.to(b_stack.dtype), dw_in
 
 
 class FusedMLPFunction(torch.autograd.Function):
   """`fused_mlp` under autograd. CUDA: the kernel forward keeps every
   layer's output and the backward runs the dgrad and wgrad kernels; in
-  float32 the weights are split once (`tf32_split`, both layouts) and
-  dgrad reads the kept split, in bfloat16 every kernel reads the weights
-  as they lie. CPU: `fused_mlp_plain`'s layers forward and
-  `fused_mlp_bwd_plain` backward."""
+  float32 the weights are split once (`tf32_split`, both layouts; an
+  entry layer's on its own) and dgrad reads the kept split, in bfloat16
+  every kernel reads the weights as they lie. CPU: `fused_mlp_plain`'s
+  layers forward and `fused_mlp_bwd_plain` backward."""
 
   @staticmethod
-  def forward(ctx, x, w_stack, b_stack, last_relu):
-    split = (None, None)
+  def forward(ctx, x, w_stack, b_stack, last_relu, w_in=None):
+    split = split_in = (None, None)
     if x.device.type == "cuda":
-      split_t = None
+      split_t = split_in_t = None
       if x.dtype == torch.float32:
-        *split, big_t, small_t = tf32_split(w_stack)
-        split_t = (big_t, small_t)
+        if w_stack.shape[0]:
+          *split, big_t, small_t = tf32_split(w_stack)
+          split_t = (big_t, small_t)
+        if w_in is not None:
+          parts = [t[0] for t in tf32_split(w_in[None])]
+          split_in, split_in_t = parts[:2], parts[2:]
       out, kept = _launch_fwd(x, w_stack, b_stack, last_relu, keep=True,
-                              split_t=split_t)
+                              split_t=split_t, w_in=w_in,
+                              split_in_t=split_in_t)
       layers = [] if kept is None else list(kept.unbind(0))
     else:
-      *layers, out = _plain_layers(x, w_stack, b_stack, last_relu)
+      *layers, out = _plain_layers(x, w_stack, b_stack, last_relu, w_in)
     ctx.last_relu = bool(last_relu)
-    ctx.save_for_backward(x, w_stack, b_stack, *split, out, *layers)
+    ctx.save_for_backward(x, w_stack, b_stack, w_in, *split, *split_in, out,
+                          *layers)
     return out
 
   @staticmethod
   def backward(ctx, g):
-    x, w_stack, b_stack, w_big, w_small, out, *layers = ctx.saved_tensors
+    (x, w_stack, b_stack, w_in, w_big, w_small, in_big, in_small, out,
+     *layers) = ctx.saved_tensors
     saved = [*layers, out]
-    g = g.contiguous()
     if x.device.type == "cuda":
-      dx, dw, db = fused_mlp_bwd(x, w_stack, b_stack, saved, g,
-                                 None if w_big is None else (w_big, w_small),
-                                 ctx.last_relu,
-                                 need_dx=ctx.needs_input_grad[0])
+      grads = fused_mlp_bwd(
+          x, w_stack, b_stack, saved, g,
+          None if w_big is None else (w_big, w_small), ctx.last_relu,
+          need_dx=ctx.needs_input_grad[0], w_in=w_in,
+          split_in=None if in_big is None else (in_big, in_small))
     else:
-      dx, dw, db = fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g,
-                                       ctx.last_relu)
-    return dx, dw, db, None
+      grads = fused_mlp_bwd_plain(x, w_stack, b_stack, saved, g.contiguous(),
+                                  ctx.last_relu, w_in)
+    dx, dw, db, dw_in = grads
+    return dx, dw, db, None, dw_in
 
 
-def fused_mlp(x, w_stack, b_stack, last_relu: bool = True):
+def fused_mlp(x, w_stack, b_stack, last_relu: bool = True, w_in=None):
   """Uniform-width ReLU MLP: x [N, D] -> [N, D].
 
   w_stack [L, D, D] (layout [in, out]), b_stack [L, 1, D]; last_relu
-  controls the final activation. CPU tensors run the plain versions.
-  CUDA tensors launch the kernels (float32 or bfloat16, one dtype for
-  all three; contiguous, D a multiple of 128, of 256 in bfloat16,
-  16-byte aligned) or raise.
+  controls the final activation. In float32 the run may open with an
+  entry layer w_in [K, D] ([in, out], K a multiple of 4 on the card): x
+  is then [N, K], w_stack [L - 1, D, D] (L - 1 may be 0) and b_stack
+  holds every layer's bias. CPU tensors run the plain versions. CUDA
+  tensors launch the kernels (float32 or bfloat16, one dtype for all;
+  contiguous, D a multiple of 128, of 256 in bfloat16, 16-byte aligned)
+  or raise.
   With grad enabled and any input requiring grad the call is
   differentiable (`FusedMLPFunction`). `fused_mlp.launches` counts the
   float32 forward's launches, `fused_mlp_fwd_bf16.launches` the bfloat16
   one's; `tf32_split` and the backward's wrappers count their own.
   """
-  _check_shapes(x, w_stack, b_stack)
+  _check_shapes(x, w_stack, b_stack, w_in)
   if x.device.type not in ("cpu", "cuda"):
     raise ValueError(f"fused_mlp: unsupported device {x.device}")
   if x.device.type == "cuda":
-    _check_cuda("fused_mlp", x, w_stack, b_stack)
-  if torch.is_grad_enabled() and any(
-      t.requires_grad for t in (x, w_stack, b_stack)):
-    return FusedMLPFunction.apply(x, w_stack, b_stack, last_relu)
+    if w_in is None:
+      _check_cuda("fused_mlp", x, w_stack, b_stack)
+    else:
+      _check_cuda("fused_mlp", w_in, w_stack, b_stack)
+      _check_entry("fused_mlp", x, w_in)
+  leaves = (x, w_stack, b_stack) + (() if w_in is None else (w_in,))
+  if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+    return FusedMLPFunction.apply(x, w_stack, b_stack, last_relu, w_in)
   if x.device.type == "cpu":
-    return fused_mlp_plain(x, w_stack, b_stack, last_relu)
-  return _launch_fwd(x, w_stack, b_stack, last_relu, keep=False)[0]
+    return fused_mlp_plain(x, w_stack, b_stack, last_relu, w_in)
+  return _launch_fwd(x, w_stack, b_stack, last_relu, keep=False,
+                     w_in=w_in)[0]
 
 
 for _fn in (fused_mlp, tf32_split, fused_mlp_bwd_dgrad, fused_mlp_bwd_wgrad,

@@ -181,8 +181,8 @@ def ab_shape(name, n, d, libs, sm):
           rows, s, 0, stream)
       _cuda.check_launch(lib, err, "wgrad variant")
       err = lib.snerf_fused_mlp_bwd_reduce(
-          pw.data_ptr(), pb.data_ptr(), dw.data_ptr(), db.data_ptr(), d, s, 0,
-          stream)
+          pw.data_ptr(), pb.data_ptr(), dw.data_ptr(), db.data_ptr(), d, d, s,
+          0, stream)
       _cuda.check_launch(lib, err, "reduce")
     return run
 

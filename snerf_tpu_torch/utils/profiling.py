@@ -19,8 +19,9 @@ launched it or kept the device waiting.
 (the spans in UNITS: train steps and render chunks), the host syncs
 inside them, the CUDA runtime calls that hold the host until the device
 has drained (SYNC_CALLS), by site, and the spans in PER_UNIT a unit (which
-path each CP level encode took). The counting adds no host work inside
-the traced window.
+path each CP level encode took; the MLP runs on K1, those of them that
+open with an entry layer, and the hidden layers left to the library).
+The counting adds no host work inside the traced window.
 
 The spans (names fixed):
   snerf.train.step      one train step (unit; train/zip_trainer.py, and
@@ -41,7 +42,12 @@ The spans (names fixed):
   snerf.encode.cp       a CP grid's forward (models/cpgrid.py)
   snerf.encode.cp.fused one CP level by the kernel (ops/cp_encode.py)
   snerf.encode.cp.plain one CP level by the plain PyTorch path
-  snerf.k1              a trunk's run of square layers (models/mlp.py)
+  snerf.k1              a trunk's run of square layers, or the mip
+                        bottleneck, on `stack_fn` (models/mlp.py)
+  snerf.k1.entry        inside snerf.k1: the run opens with an entry
+                        layer of another input width (f32)
+  snerf.mlp.dense       a hidden ReLU layer left to the library (a trunk
+                        layer off K1, the mip cond and semantic layers)
   snerf.train.losses    the model's output to the total loss
   snerf.train.conf      the mip step's depth confidence of its rays
                         (inside losses)
@@ -80,7 +86,8 @@ SYNC_CALLS = frozenset({"cudaDeviceSynchronize", "cudaStreamSynchronize",
                         "cudaEventSynchronize", "cudaMemcpy", "cudaFree"})
 NODE_PREFIX = "autograd::engine::evaluate_function: "
 # spans counted a unit by `counts`
-PER_UNIT = ("snerf.encode.cp.fused", "snerf.encode.cp.plain")
+PER_UNIT = ("snerf.encode.cp.fused", "snerf.encode.cp.plain", "snerf.k1",
+            "snerf.k1.entry", "snerf.mlp.dense")
 
 
 def span(name: str):

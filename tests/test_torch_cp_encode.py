@@ -145,9 +145,12 @@ def test_counts_tally_the_cp_level_paths():
   got = profiling.counts(events)
   assert got["units"] == 2
   assert got["spans_per_unit"] == {"snerf.encode.cp.fused": 10.0,
-                                   "snerf.encode.cp.plain": 0.5}
+                                   "snerf.encode.cp.plain": 0.5,
+                                   "snerf.k1": 0.0, "snerf.k1.entry": 0.0,
+                                   "snerf.mlp.dense": 0.0}
   assert profiling.counts([])["spans_per_unit"] == {
-      "snerf.encode.cp.fused": 0.0, "snerf.encode.cp.plain": 0.0}
+      "snerf.encode.cp.fused": 0.0, "snerf.encode.cp.plain": 0.0,
+      "snerf.k1": 0.0, "snerf.k1.entry": 0.0, "snerf.mlp.dense": 0.0}
 
 
 # ---- the table's fragment order and the window

@@ -47,6 +47,7 @@ STEP_TREE = {
     ("snerf.encode.cp.plain", "snerf.encode.cp"),
     ("snerf.encode.hash", "snerf.level.mlp"),
     ("snerf.k1", "snerf.level.mlp"),
+    ("snerf.mlp.dense", "snerf.level.mlp"),
     ("snerf.level.composite", "snerf.train.step"),
     ("snerf.train.losses", "snerf.train.step"),
     ("snerf.train.backward", "snerf.train.step"),
@@ -69,6 +70,7 @@ MIP_STEP_TREE = {
     ("snerf.encode.ipe", "snerf.train.step"),
     ("snerf.level.mlp", "snerf.train.step"),
     ("snerf.k1", "snerf.level.mlp"),
+    ("snerf.mlp.dense", "snerf.level.mlp"),
     ("snerf.level.composite", "snerf.train.step"),
     ("snerf.train.losses", "snerf.train.step"),
     ("snerf.train.conf", "snerf.train.losses"),
@@ -76,9 +78,11 @@ MIP_STEP_TREE = {
     ("snerf.train.clip", "snerf.train.step"),
     ("Optimizer.step#Adam.step", "snerf.train.step"),
 }
-# the trunk checkpoint's recompute runs K1 again in the backward: under
-# the backward's span on the CPU, on autograd's own thread on the card
-RECOMPUTE = {("snerf.k1", "snerf.train.backward"), ("snerf.k1", None)}
+# the trunk checkpoint's recompute runs the trunk again in the backward:
+# under the backward's span on the CPU, on autograd's own thread on the
+# card
+RECOMPUTE = {(name, parent) for name in ("snerf.k1", "snerf.mlp.dense")
+             for parent in ("snerf.train.backward", None)}
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +182,7 @@ def test_render_chunk_records_the_level_spans(tiny):
       ("snerf.encode.cp.plain", "snerf.encode.cp"),
       ("snerf.encode.hash", "snerf.level.mlp"),
       ("snerf.k1", "snerf.level.mlp"),
+      ("snerf.mlp.dense", "snerf.level.mlp"),
       ("snerf.level.composite", "snerf.render.chunk")}
   assert _count(events, "snerf.render.chunk") == 1
 
@@ -203,11 +208,14 @@ def test_counts_the_traced_units(tiny):
     step(state, gen)
     render_fn(rays)
   # on the CPU nothing synchronizes, and every CP level (2 + 3 + 3 a unit)
-  # takes the plain path
+  # takes the plain path; each of the 3 MLPs runs its trunk as two K1 runs
+  # and two library layers (the 16-wide entry and skip-cat layers), twice
+  # a step (the checkpoint's recompute): (12 + 12 + 6) / 3 each
   assert profiling.counts(prof.events()) == {
       "units": 3, "host_syncs": 0, "host_syncs_by_site": {},
       "spans_per_unit": {"snerf.encode.cp.fused": 0.0,
-                         "snerf.encode.cp.plain": 8.0}}
+                         "snerf.encode.cp.plain": 8.0, "snerf.k1": 10.0,
+                         "snerf.k1.entry": 0.0, "snerf.mlp.dense": 10.0}}
 
 
 def test_mip_step_records_the_span_tree(tiny_mip):
@@ -218,18 +226,21 @@ def test_mip_step_records_the_span_tree(tiny_mip):
     step(state, gen)
   events = prof.events()
   assert _tree(events) == MIP_STEP_TREE
-  # the draws and the ray batch; two levels; the proposal trunk's run and
-  # the fine trunk's two around the skip; the three Adams
+  # the draws and the ray batch; two levels; the proposal trunk's run, the
+  # fine trunk's two around the skip and the bottleneck; the three Adams
   for name, n in (("snerf.train.step", 1), ("snerf.train.draw", 2),
                   ("snerf.train.pose", 1), ("snerf.train.conf", 1),
                   ("snerf.level.sample", 2), ("snerf.encode.ipe", 2),
                   ("snerf.level.mlp", 2), ("snerf.level.composite", 2),
-                  ("snerf.k1", 3), ("Optimizer.step#Adam.step", 3)):
+                  ("snerf.k1", 4), ("Optimizer.step#Adam.step", 3)):
     assert _count(events, name) == n, name
+  # 16 wide, no layer of another width opens a run: the trunks' first
+  # layers, the skip-cat layer and the 3 cond layers stay on the library
   assert profiling.counts(events) == {
       "units": 1, "host_syncs": 0, "host_syncs_by_site": {},
       "spans_per_unit": {"snerf.encode.cp.fused": 0.0,
-                         "snerf.encode.cp.plain": 0.0}}
+                         "snerf.encode.cp.plain": 0.0, "snerf.k1": 4.0,
+                         "snerf.k1.entry": 0.0, "snerf.mlp.dense": 6.0}}
 
 
 def test_mip_step_without_a_profiler_equals_an_unspanned_step(monkeypatch):
