@@ -61,16 +61,14 @@ Phases, each fatal on failure:
      make_eval_render_fn / render_image (chunk 4096); the outputs must be
      finite with acc in [0, 1], K1 must have been launched, and one chunk
      must agree with a model sharing the weights whose MLP stacks run the
-     plain PyTorch version; one chunk is timed against that model and
-     broken down under torch.profiler;
+     plain PyTorch version;
   6. zip slice: the shipped waymo_zipnerf model (hash encoder) at full
      width with a seeded init renders the same 2 views through
      make_zip_eval_render_fn / render_image (chunk 8192); the outputs must
      be finite with acc in [0, 1] and semantic rows summing to acc, the
      fused encode must have been launched 3 times a chunk and K2's gather
      never, one chunk must agree with a model whose encoders run the plain
-     encode and differ from a render with the tables zeroed; one chunk is
-     broken down under torch.profiler;
+     encode and differ from a render with the tables zeroed;
   7a. K1's backward against plain: the dgrad, wgrad and reduce kernels
      against fused_mlp_bwd_plain on the same saved layers at the train
      step's shapes (fine trunk_1..4 and trunk_6..7 at 520,192 rows,
@@ -87,11 +85,10 @@ Phases, each fatal on failure:
      scene, N_rgb 4096, seeded: 2 warm-up and 24 timed steps (s/step,
      rays/s, peak memory, K1 launches per step against the expected
      counts, tf32_split one a run's square layers and one an entry
-     layer), finite and falling loss, moved
-     confidence lambdas, a torch.profiler breakdown of one step, and one
-     step against the same weights, lambdas and draws with the
-     stacks' backward plain (every grad within STEP_BWD_TOL) and with
-     plain stacks (loss, metrics, every grad), and a non-zero pose grad;
+     layer), finite and falling loss, moved confidence lambdas, and one
+     step against the same weights, lambdas and draws with the stacks'
+     backward plain (every grad within STEP_BWD_TOL) and with plain stacks
+     (loss, metrics, every grad), and a non-zero pose grad;
   7c. the depth-confidence precompute (models/confidence.py, the seeded
      VGG pyramid of models/features.py on cuDNN) on the card against the
      port's CPU precompute of 8 realfocal train views, the shipped modes:
@@ -112,12 +109,11 @@ Phases, each fatal on failure:
      labels from depth quantiles and an object mask on one corner, batch
      32768: 2 warm-up and 12 timed steps (s/step, rays/s, peak memory, 3
      fused encode forwards and 3 backwards a step, no K2 gather or
-     scatter-add), a finite and falling loss, a torch.profiler breakdown
-     of one step, and one step against the same weights whose encoders run
-     the plain encode (table[idx] forward, PyTorch's accumulating
-     scatter-add backward): every grad, each hash level's apart, within
-     ZIP_STEP_GRAD_TOL, which must sit below the weakest fault reading of
-     the run;
+     scatter-add), a finite and falling loss, and one step against the
+     same weights whose encoders run the plain encode (table[idx] forward,
+     PyTorch's accumulating scatter-add backward): every grad, each hash
+     level's apart, within ZIP_STEP_GRAD_TOL, which must sit below the
+     weakest fault reading of the run;
   9. the entry points, on tests/fixtures/nuscenes_realfocal (each run in
      process through the entry point's main(argv), its launch counts set
      to 0 just before it and read just after):
@@ -130,7 +126,6 @@ Phases, each fatal on failure:
        captured in one zip_hash step on the fixture (3 forwards and 3
        backwards, no K2): forward bit-equal, table gradient within
        SCATTER_TOL of an f64 control per level beside a fault reading;
-       one zip_hash step under torch.profiler;
      9b. cli.train with configs/nuScenes_depth_6cams at full width, its
        depth confidence as shipped (--lrate_delay 0) for 40 steps, then
        resumed to 60 (the restored state, the confidence lambdas and
@@ -148,9 +143,7 @@ Phases, each fatal on failure:
      9d. the mip quality cell (snerf_tpu_torch.bench_quality, family
        mip) for its 2,000 steps, seed 0, read at steps 500, 1,000 and
        2,000 beside the JAX package's seeds: held-out PSNR at 2,000 at
-       least CELL_PSNR_FLOOR, K1's backward 13 launches a step (11
-       dgrad); one cell
-       step under torch.profiler;
+       least CELL_PSNR_FLOOR, K1's backward 13 launches a step (11 dgrad);
  10. configs/waymo_zipnerf_tpu, the cp_hash arm (the integrated CP grid,
      one fine hash level on the nerf MLP, the cylinder cast, 8 x 512
      trunks):
@@ -164,9 +157,7 @@ Phases, each fatal on failure:
        gradient captured in one f32 cp_hash step (--zip_compute_dtype
        float32), its launches counted: forward bit-equal, table gradient
        within SCATTER_TOL of an f64 control beside a fault reading; the
-       CP level encode's kernel 10 forwards and 10 table gradients a
-       step; one f32 cp_hash step under torch.profiler (K1, the encode,
-       the CP encode, the other GEMMs, idle);
+       CP level encode's kernel 10 forwards and 10 table gradients a step;
      10c. cli.train with the config as shipped (bf16 MLPs) but
        --zip_lr_delay 0 on the Waymo-layout copy of the fixture, 2 + 10
        steps at the shipped batch: s/step, peak memory, K1's bf16
@@ -208,10 +199,10 @@ Phases, each fatal on failure:
      11b. one bf16 train step each of waymo_zipnerf and waymo_zipnerf_tpu
        as shipped (zip_lr_delay 0) on the synthetic scene: s/step over 3
        steps, peak memory, the launches of one step (the cp_hash step:
-       K1's bf16 forward 12, dgrad / wgrad / reduce 21, no f32 K1), one
-       step under torch.profiler; the cp_hash step against the same
-       weights and draws with K1's plain bf16 versions (BF16_STEP_GRAD_TOL
-       per tensor) beside the f32 step as a control, which must exceed it;
+       K1's bf16 forward 12, dgrad / wgrad / reduce 21, no f32 K1); the
+       cp_hash step against the same weights and draws with K1's plain
+       bf16 versions (BF16_STEP_GRAD_TOL per tensor) beside the f32 step
+       as a control, which must exceed it;
      11c. the bench line (python -m snerf_tpu_torch.bench: bench.py's mip
        model in bf16), its rays/s, precision and K1 launches a step.
 Each phase prints its seconds. The kernels line lists every kernel with
@@ -854,72 +845,6 @@ def entry_phase(torch, iters=10):
   return {c[0]: entry_case(torch, fm, *c, iters=iters) for c in ENTRY_CASES}
 
 
-def profile_step(torch, step_fn, what="step"):
-  """Device time of one train step (or render chunk) under
-  torch.profiler, by kernel: K1 forward, its weight split, dgrad, wgrad
-  (+ its reduce), cuBLAS GEMMs, the optimizer (kernels under
-  Optimizer.step) and the rest (elementwise, sort, reductions, copies);
-  with the idle share against the host clock."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    step_fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-  def kind(name):
-    for key, label in K1_PROFILE_KINDS:
-      if key in name:
-        return label
-    if "gemm" in name.lower() or "gemv" in name.lower():
-      return "matmul (cuBLAS)"
-    return None
-
-  def in_optimizer(e):
-    while e is not None:
-      if e.name.startswith("Optimizer.step"):
-        return True
-      e = e.cpu_parent
-    return False
-
-  events = prof.events()
-  out = {k: 0.0 for k in ("K1 forward", "K1 tf32_split", "K1 dgrad",
-                          "K1 wgrad + reduce", "matmul (cuBLAS)",
-                          "optimizer (Adam)")}
-  by_name, busy = {}, 0.0
-  for e in events:
-    if e.device_type != DeviceType.CUDA or getattr(
-        e, "is_user_annotation", False):
-      continue
-    ms = e.time_range.elapsed_us() / 1e3
-    busy += ms
-    by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if kind(e.name):
-      out[kind(e.name)] += ms
-  for e in events:
-    if e.device_type == DeviceType.CPU and e.kernels and in_optimizer(e):
-      out["optimizer (Adam)"] += sum(k.duration / 1e3 for k in e.kernels
-                                     if not kind(k.name))
-  if busy == 0:
-    log(f"  profile of one {what}: wall {wall_ms:.1f} ms; torch.profiler "
-        "recorded no device time, breakdown not measured")
-    return None
-  out["other (elementwise, sort, reductions, copies)"] = (
-      busy - sum(out.values()))
-  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
-  log(f"  profile of one {what}: wall {wall_ms:.1f} ms, device busy "
-      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:7]:
-    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
-  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-    log(f"    kernel {name[:90]}: {ms:.2f} ms")
-  return out
-
-
 def _grad_errs(torch, a, b):
   """{param: (relative L2 error, max abs err, max|plain|)} of two models'
   grads, a against b (the plain one)."""
@@ -1053,8 +978,10 @@ def train_slice(torch, scene, card):
       f"{int((moved.amax(0) > 0).sum())} of {moved.shape[1]} images' "
       "columns")
   check(float(moved.max()) > 0, "the confidence lambdas did not move")
-
-  prof = profile_step(torch, lambda: step(state, gen))
+  # One more step: the comparisons below read the state and draws their
+  # limits were set on. One step earlier the plain-stack loss reads 1.3e-5
+  # against STEP_LOSS_TOL (ROADMAP Queue 6 (e)).
+  step(state, gen)
 
   class KernelFwdPlainBwd(torch.autograd.Function):
     """K1's forward kernel keeping its layers, fused_mlp_bwd_plain on
@@ -1092,7 +1019,7 @@ def train_slice(torch, scene, card):
     c = ConfidenceModel(tcfg.conf_modes, scene.num_images, device="cuda")
     c.load_state_dict(state.conf_model.state_dict())
     models[name] = (m, p, c)
-  steps, metrics = {}, {}
+  metrics = {}
   draws = trainer.draw_step(mcfg, tcfg, dev_scene["images"], scene.i_train,
                             gen)
   for name, (m, p, c) in models.items():
@@ -1100,11 +1027,9 @@ def train_slice(torch, scene, card):
         step=state.step, model=m, optimizer=trainer.adam(m.parameters(), 0),
         pose_model=p, pose_optimizer=trainer.adam(p.parameters(), 0),
         conf_model=c, conf_optimizer=trainer.adam(c.parameters(), 0))
-    steps[name] = (trainer.make_train_step(m, p, tcfg, dev_scene,
-                                           scene.i_train, scene.near,
-                                           scene.far, conf_maps=conf_maps),
-                   st)
-    metrics[name] = steps[name][0](st, draws=draws)
+    metrics[name] = trainer.make_train_step(
+        m, p, tcfg, dev_scene, scene.i_train, scene.near, scene.far,
+        conf_maps=conf_maps)(st, draws=draws)
   img = int(draws.img_idx[0])
   pose_grad = float(pose.r.grad[img].abs().max() + pose.t.grad[img].abs()
                     .max())
@@ -1138,23 +1063,9 @@ def train_slice(torch, scene, card):
           f"{pose_errs}")
   log(f"  pose grad of the sampled image {img}: {pose_grad:.3e}")
   check(pose_grad > 0, "the sampled image's pose got no gradient")
-
-  # end to end in turns: plain-stack step, kernel step, kernel, plain
-  times = {}
-  for name, key in (("plain", "plain stacks"), ("kernel", "kernel"),
-                    ("kernel2", "kernel"), ("plain2", "plain stacks")):
-    fn, st = steps[key]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(st, draws=draws)
-    torch.cuda.synchronize()
-    times[name] = time.perf_counter() - t0
-  log(f"  one step end to end: kernel model {times['kernel']:.4f} / "
-      f"{times['kernel2']:.4f} s, plain-stack model {times['plain']:.4f} / "
-      f"{times['plain2']:.4f} s")
-  del model, pose, state, models, steps, m, p, c, st, conf_maps
+  del model, pose, state, models, m, p, c, st, conf_maps
   torch.cuda.empty_cache()
-  return counts, prof
+  return counts
 
 
 def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
@@ -1204,97 +1115,6 @@ def gather_case(torch, hash_ops, name, rows, c, n_idx, iters):
   torch.cuda.empty_cache()
   return dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms,
               bound_by=b_by)
-
-
-def _hash_kind(name):
-  """The profile bucket of a hash-encoder kernel, by its name."""
-  for key, label in (("hash_encode_fwd_kernel", "fused encode forward"),
-                     ("hash_encode_bwd_kernel", "fused encode backward"),
-                     ("gather_rows_kernel", "K2 gather"),
-                     ("scatter_add_rows", "scatter-add")):
-    if key in name:
-      return label
-  if "gemm" in name.lower() or "gemv" in name.lower():
-    return "matmul (cuBLAS)"
-  return None
-
-
-def profile_chunk(torch, render_fn, rays):
-  """Device time of one render chunk under torch.profiler, by kernel
-  name (the fused encode, K2, cuBLAS GEMMs) and by the labelled calls:
-  the model's hash encoders (the program's "snerf.encode.hash" spans:
-  what else runs under them, index and weight math outside the kernel)
-  and max_dilate, with the device idle share against the host clock.
-  Returns the breakdown in ms."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile, record_function
-  from snerf_tpu_torch.ops import stepfun
-
-  def labelled(fn, label):
-    def wrapped(*args, **kwargs):
-      with record_function(label):
-        return fn(*args, **kwargs)
-    return wrapped
-
-  orig = stepfun.max_dilate
-  stepfun.max_dilate = labelled(orig, "max_dilate")
-  try:
-    render_fn(rays)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      t0 = time.perf_counter()
-      render_fn(rays)
-      torch.cuda.synchronize()
-      wall_ms = (time.perf_counter() - t0) * 1e3
-  finally:
-    stepfun.max_dilate = orig
-
-  def under(e, label):
-    while e is not None:
-      if e.name == label:
-        return True
-      e = e.cpu_parent
-    return False
-
-  events = prof.events()
-  device = [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-  out = {"fused encode forward": 0.0, "K2 gather": 0.0,
-         "matmul (cuBLAS)": 0.0, "hash index/weight math": 0.0,
-         "max_dilate": 0.0}
-  by_name = {}
-  for e in device:
-    ms = e.time_range.elapsed_us() / 1e3
-    by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if _hash_kind(e.name) in out:
-      out[_hash_kind(e.name)] += ms
-  for e in events:
-    if e.device_type != DeviceType.CPU or not e.kernels:
-      continue
-    for k in e.kernels:
-      if _hash_kind(k.name):
-        continue
-      if under(e, "max_dilate"):
-        out["max_dilate"] += k.duration / 1e3
-      elif under(e, "snerf.encode.hash"):
-        out["hash index/weight math"] += k.duration / 1e3
-  busy = sum(by_name.values())
-  if busy == 0:
-    log(f"  profile of one chunk: wall {wall_ms:.2f} ms; torch.profiler "
-        "recorded no device time, breakdown not measured")
-    return None
-  out["other (elementwise, sort, reductions)"] = busy - sum(out.values())
-  out.update(device_total=busy, wall=wall_ms,
-             idle_share=1.0 - busy / wall_ms)
-  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-  log(f"  profile of one chunk: wall {wall_ms:.2f} ms, device busy "
-      f"{busy:.2f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:6]:
-    log(f"    {k}: {out[k]:.3f} ms ({100 * out[k] / busy:.1f}%)")
-  for name, ms in top:
-    log(f"    kernel {name[:90]}: {ms:.3f} ms")
-  return out
 
 
 def zip_slice(torch, scene, views, view_rays, card):
@@ -1388,18 +1208,10 @@ def zip_slice(torch, scene, views, view_rays, card):
       f"(tol {ZIP_RENDER_TOL})")
   check(all(v <= ZIP_RENDER_TOL for v in errs.values()),
         f"fused-encode render disagrees with the plain-encode model: {errs}")
-  plain_fn = make_zip_eval_render_fn(plain_model)
-  p1 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
-  k1 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
-  k2 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
-  p2 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
-  log(f"  one chunk end to end: fused-encode model {(k1 + k2) / 2:.2f} ms, "
-      f"plain-encode model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
-      f"{p1:.2f}/{p2:.2f}] | {card}")
   with torch.no_grad():
     for mlp in plain_model.mlps():
       mlp.encoder.embeddings.zero_()
-  flat = plain_fn(chunk_rays)
+  flat = make_zip_eval_render_fn(plain_model)(chunk_rays)
   moved = float((got["rgb"] - flat["rgb"]).abs().max())
   log(f"  the same chunk with the tables zeroed: rgb moves by {moved:.4f} "
       f"(must exceed {TABLES_MATTER})")
@@ -1407,7 +1219,6 @@ def zip_slice(torch, scene, views, view_rays, card):
         f"the render (max rgb change {moved})")
   del plain_model, flat, want
   torch.cuda.empty_cache()
-  profile_chunk(torch, render_fn, chunk_rays)
 
 
 def sass_check(so, nvcc):
@@ -1961,83 +1772,6 @@ def probe_phase(torch, iters=20):
   return res, survey, counts
 
 
-def profile_zip_step(torch, step_fn):
-  """Device time of one zip train step under torch.profiler: the fused
-  encode forward and backward, K2 gathers and scatter-adds (each launch
-  in order; none expected), cuBLAS, what else runs under the encoders in
-  the forward (index and weight math outside the kernel; the program's
-  "snerf.encode.hash" spans), the forward losses ("snerf.train.losses"),
-  the backward's other kernels, Adam and the rest; with the idle share
-  against the host clock."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    step_fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-  def context(e):
-    while e is not None:
-      if e.name.startswith("Optimizer.step"):
-        return "Adam"
-      if e.name == "snerf.encode.hash":
-        return "hash index/weight math (forward)"
-      if e.name == "snerf.train.losses":
-        return "losses (forward)"
-      if e.name.startswith("autograd::engine::evaluate_function"):
-        return "backward (elementwise, reductions, copies)"
-      e = e.cpu_parent
-    return "other forward (sampling, compositing, activations)"
-
-  events = prof.events()
-  out = {k: 0.0 for k in ("fused encode forward", "fused encode backward",
-                          "K2 gather", "scatter-add", "matmul (cuBLAS)",
-                          "hash index/weight math (forward)",
-                          "losses (forward)",
-                          "backward (elementwise, reductions, copies)",
-                          "Adam",
-                          "other forward (sampling, compositing, "
-                          "activations)")}
-  busy, scatters, by_name = 0.0, [], {}
-  for e in events:
-    if e.device_type != DeviceType.CUDA or getattr(
-        e, "is_user_annotation", False):
-      continue
-    ms = e.time_range.elapsed_us() / 1e3
-    busy += ms
-    by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if _hash_kind(e.name):
-      out[_hash_kind(e.name)] += ms
-    if _hash_kind(e.name) in ("scatter-add", "fused encode backward"):
-      scatters.append((e.time_range.start, ms))
-  for e in events:
-    if e.device_type == DeviceType.CPU and e.kernels:
-      for k in e.kernels:
-        if not _hash_kind(k.name):
-          out[context(e)] += k.duration / 1e3
-  if busy == 0:
-    log(f"  profile of one step: wall {wall_ms:.1f} ms; torch.profiler "
-        "recorded no device time, breakdown not measured")
-    return None
-  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
-  log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
-      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%")
-  for k in list(out)[:10]:
-    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
-  per_launch = [ms for _, ms in sorted(scatters)]
-  log(f"    table-gradient launches in order ({len(per_launch)}, "
-      f"{sum(per_launch):.2f} ms together; the backward runs nerf_mlp, "
-      f"prop_mlp_1, prop_mlp_0): " + " ".join(f"{v:.3f}" for v in per_launch))
-  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-    log(f"    kernel {name[:90]}: {ms:.2f} ms")
-  out["bwd_per_launch"] = per_launch
-  return out
-
-
 def zip_train_setup(torch, scene, log_config=False, config="waymo_zipnerf",
                     shipped_dtype=False):
   """The training step of `config` (waymo_zipnerf by default) at full
@@ -2147,8 +1881,7 @@ def zip_train_slice(torch, scene, card):
   for n, v in counts.items():
     check(v == expected[n] * ZIP_TRAIN_STEPS,
           f"{n} launches {v}, expected {expected[n] * ZIP_TRAIN_STEPS}")
-
-  prof = profile_zip_step(torch, lambda: step(state, gen))
+  step(state, gen)   # the state and draws the limits were set on
 
   # one step of this model against the same weights whose encoders run
   # the plain encode (table[idx] forward, its scatter-add backward), on the
@@ -2193,21 +1926,9 @@ def zip_train_slice(torch, scene, card):
   check(all(float(p.grad.abs().max()) > 0 for n, p in
             model.named_parameters() if n.endswith("embeddings")),
         "a hash table got no gradient")
-  times = {}
-  for name, (fn, st) in (("plain", (pstep, pstate)), ("kernel", (step, state)),
-                         ("kernel2", (step, state)),
-                         ("plain2", (pstep, pstate))):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(st, draws)
-    torch.cuda.synchronize()
-    times[name] = time.perf_counter() - t0
-  log(f"  one step end to end: fused-encode model {times['kernel']:.4f} / "
-      f"{times['kernel2']:.4f} s, plain-encode model {times['plain']:.4f} / "
-      f"{times['plain2']:.4f} s | {card}")
   del model, plain, state, pstate, step, pstep
   torch.cuda.empty_cache()
-  return counts, prof
+  return counts
 
 
 # Phase 9, the entry points: the shapes of the quality cells (9a), the
@@ -2229,15 +1950,6 @@ CELL_STEPS = 2000
 JAX_CELL_PSNR = {500: (28.39, 27.66, 27.80), 1000: (31.42, 31.37, 31.45),
                  2000: (34.07, 34.27, 34.80)}
 CELL_PSNR_FLOOR = min(JAX_CELL_PSNR[CELL_STEPS]) - 1.5
-# K1's kernels by name in a profile, f32 and bf16
-K1_PROFILE_KINDS = (("k1_wgmma_kernel<false>", "K1 forward"),
-                    ("k1_bf16_fwd_kernel", "K1 forward"),
-                    ("tf32_split", "K1 tf32_split"),
-                    ("k1_wgmma_kernel<true>", "K1 dgrad"),
-                    ("k1_bf16_dgrad_kernel", "K1 dgrad"),
-                    ("fused_mlp_bwd_wgrad", "K1 wgrad + reduce"),
-                    ("k1_bf16_wgrad_kernel", "K1 wgrad + reduce"),
-                    ("fused_mlp_bwd_reduce", "K1 wgrad + reduce"))
 K1_KERNELS = ("fused_mlp", "tf32_split", "fused_mlp_bwd_dgrad",
               "fused_mlp_bwd_wgrad", "fused_mlp_bwd_reduce")
 ENCODE_KERNELS = ("hash_encode_fwd", "hash_encode_bwd", "hash_gather",
@@ -2501,9 +2213,6 @@ def cell_shapes_phase(torch):
   _, state, step = bench_quality.zip_setup(scene, 800, CELL_RAYS,
                                            torch.device("cuda"))
   encoders, counts = counted(lambda: record_encoders(torch, state, step))
-  gen = torch.Generator(device="cuda").manual_seed(1)
-  log("  one zip_hash cell step on the realfocal fixture (batch 2,048):")
-  profile_zip_step(torch, lambda: step(state, gen))
   del state, step
   torch.cuda.empty_cache()
   log(f"  one zip_hash step on the realfocal fixture: fused encode "
@@ -2782,8 +2491,7 @@ def quality_cell_phase(torch):
   """9d: the mip quality cell (bench_quality's family mip) for its
   CELL_STEPS steps, seed 0, read at its milestones beside the JAX
   package's seeds: the last at least CELL_PSNR_FLOOR; K1's backward 13
-  launches a step (CELL_K1_DGRAD_PER_STEP dgrad); then one cell step under
-  torch.profiler."""
+  launches a step (CELL_K1_DGRAD_PER_STEP dgrad)."""
   from snerf_tpu_torch import bench_quality
 
   scene = bench_quality.load_fixture()
@@ -2805,14 +2513,6 @@ def quality_cell_phase(torch):
         f"K1 backward launches a step {per_step}, expected {want}")
   check(r["psnr"] >= CELL_PSNR_FLOOR, f"mip cell held-out PSNR "
         f"{r['psnr']:.2f} below {CELL_PSNR_FLOOR:.2f}")
-  # where a cell step's time goes: a fresh cell, two warm-up steps
-  _, state, step = bench_quality.mip_setup(scene, CELL_STEPS, CELL_RAYS,
-                                           torch.device("cuda"))
-  gen = torch.Generator(device="cuda").manual_seed(1)
-  for _ in range(2):
-    step(state, gen)
-  profile_step(torch, lambda: step(state, gen), "mip cell step")
-  del state, step
   torch.cuda.empty_cache()
   return dict(r, counts=counts)
 
@@ -2882,88 +2582,6 @@ def tpu_shapes_phase(torch):
   return dict(fwd=fwd, bwd=bwd, alone=alone)
 
 
-def profile_cp_step(torch, step_fn):
-  """Device time of one cp_hash train step under torch.profiler, by what
-  runs it: K1 (forward and its recompute, tf32_split, dgrad, wgrad +
-  reduce), the fused encode, the CP encode (its kernel's launches, or on
-  the plain path its profiles and matmuls), the other cuBLAS GEMMs
-  (the trunks' wider layers, the view branch), Adam and the rest; with
-  the idle share against the host clock. The CP encode is what runs
-  under the program's "snerf.encode.cp" spans and `_LevelEncode`'s
-  backward."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    t0 = time.perf_counter()
-    step_fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-  def kind(name):
-    for key, label in K1_PROFILE_KINDS + (
-        ("hash_encode_fwd_kernel", "fused encode forward"),
-        ("hash_encode_bwd_kernel", "fused encode backward")):
-      if key in name:
-        return label
-    return None
-
-  def context(e, kernel):
-    gemm = "gemm" in kernel.lower() or "gemv" in kernel.lower()
-    while e is not None:
-      if e.name == "snerf.encode.cp" or "_LevelEncode" in e.name:
-        return "CP encode"
-      if e.name.startswith("Optimizer.step"):
-        return "Adam"
-      e = e.cpu_parent
-    return "other matmul (cuBLAS)" if gemm else "the rest"
-
-  events = prof.events()
-  out = {k: 0.0 for k in ("K1 forward", "K1 tf32_split", "K1 dgrad",
-                          "K1 wgrad + reduce", "fused encode forward",
-                          "fused encode backward",
-                          "CP encode",
-                          "other matmul (cuBLAS)", "Adam", "the rest")}
-  busy, by_name = 0.0, {}
-  for e in events:
-    if e.device_type != DeviceType.CUDA or getattr(
-        e, "is_user_annotation", False):
-      continue
-    ms = e.time_range.elapsed_us() / 1e3
-    busy += ms
-    by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    if kind(e.name):
-      out[kind(e.name)] += ms
-  # Each CPU event's kernels go to its context, each kernel name within
-  # the device time that name took: a kernel listed under more than one
-  # event, or a record_function's device range ("snerf.encode.cp"), is not
-  # counted twice.
-  budget = dict(by_name)
-  for e in events:
-    if e.device_type == DeviceType.CPU and e.kernels:
-      for k in e.kernels:
-        ms = min(k.duration / 1e3, budget.get(k.name, 0.0))
-        if not kind(k.name) and ms > 0:
-          budget[k.name] -= ms
-          out[context(e, k.name)] += ms
-  if busy == 0:
-    log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms; "
-        "torch.profiler recorded no device time, breakdown not measured")
-    return None
-  out.update(device_total=busy, wall=wall_ms, idle_share=1 - busy / wall_ms)
-  attributed = sum(out[k] for k in list(out)[:10])
-  log(f"  profile of one cp_hash step: wall {wall_ms:.1f} ms, device busy "
-      f"{busy:.1f} ms, idle share {100 * out['idle_share']:.1f}%; the "
-      f"breakdown attributes {attributed:.1f} ms of the busy time")
-  for k in list(out)[:10]:
-    log(f"    {k}: {out[k]:.2f} ms ({100 * out[k] / busy:.1f}%)")
-  for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-    log(f"    kernel {name[:90]}: {ms:.2f} ms")
-  return out
-
-
 def tpu_encode_phase(torch, scene):
   """10b: one cp_hash train step of configs/waymo_zipnerf_tpu at full
   width on the synthetic scene, its fine level recording its positions
@@ -2971,7 +2589,7 @@ def tpu_encode_phase(torch, scene):
   2^19 rows at resolution 2,048) on uniform positions and on the
   captured ones: forward bit-equal to the plain version, the table
   gradient within SCATTER_TOL of an f64 control beside the fault of an
-  update missing (encode_case). Then one step under torch.profiler."""
+  update missing (encode_case)."""
   *_, state, step = zip_train_setup(torch, scene, config=TPU_CONFIG)
   encoders = record_encoders(torch, state, step)
   check(set(encoders) == {"nerf_mlp"}, "the cp_hash step's hash encoders: "
@@ -2995,7 +2613,6 @@ def tpu_encode_phase(torch, scene):
   check(counts["cp_encode_fwd"] == counts["cp_encode_bwd"] == CP_LEVELS,
         f"the f32 cp_hash step's CP encode launches {counts}, expected "
         f"{CP_LEVELS} forwards and {CP_LEVELS} table gradients")
-  prof = profile_cp_step(torch, lambda: step(state, gen))
   del state, step
   torch.cuda.empty_cache()
   enc = {name: encode_case(torch, name, spec, TPU_NERF_ROWS, 5, **kw)
@@ -3009,7 +2626,7 @@ def tpu_encode_phase(torch, scene):
           "plain version")
   del xf, g
   torch.cuda.empty_cache()
-  return dict(enc=enc, prof=prof, counts=counts)
+  return dict(enc=enc, counts=counts)
 
 
 def tpu_cli_phase(torch, base, card):
@@ -3640,9 +3257,9 @@ class PlainBf16Stack:
 def bf16_step_phase(torch, scene, card, config, compare_plain):
   """11b for one config as shipped (bf16 MLPs, zip_lr_delay 0): s/step
   over 3 steps after one warm-up, the launches of one step, its peak
-  memory and a profiled step; with compare_plain, one step against the
-  same weights and draws with K1's plain bf16 versions, beside the f32
-  step on them as a control."""
+  memory; with compare_plain, one step against the same weights and draws
+  with K1's plain bf16 versions, beside the f32 step on them as a
+  control."""
   import dataclasses
 
   from snerf_tpu_torch.models.zipnerf import ZipNerfModel
@@ -3684,15 +3301,13 @@ def bf16_step_phase(torch, scene, card, config, compare_plain):
                                                 "cp_encode_bwd")) == 0
           and counts["hash_encode_fwd"] == ENCODE_PER_MLP,
           f"the bf16 hash step's launches {counts}")
-  prof = (profile_cp_step(torch, lambda: step(state, gen))
-          if config == TPU_CONFIG else
-          profile_zip_step(torch, lambda: step(state, gen)))
-  out = dict(counts=counts, peak=peak, secs=secs, prof=prof)
+  out = dict(counts=counts, peak=peak, secs=secs)
   if not compare_plain:
     del model, state, step
     torch.cuda.empty_cache()
     return out
 
+  step(state, gen)   # the state and draws the limits were set on
   draws = zt.draw_zip_step(zcfg, tcfg, dev_scene["images"], zscene.i_train,
                            gen)
   weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -4069,17 +3684,7 @@ def main() -> int:
       f"(tol {RENDER_TOL})")
   check(all(v <= RENDER_TOL for v in errs.values()),
         f"kernel render disagrees with the plain stack: {errs}")
-  plain_fn = make_eval_render_fn(plain_model, white_bkgd=cfg.white_bkgd)
-  p1 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
-  k1 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
-  k2 = time_ms(torch, lambda: render_fn(chunk_rays), 3)
-  p2 = time_ms(torch, lambda: plain_fn(chunk_rays), 3)
-  log(f"  one chunk end to end: kernel model {(k1 + k2) / 2:.2f} ms, "
-      f"plain-stack model {(p1 + p2) / 2:.2f} ms [{k1:.2f}/{k2:.2f} vs "
-      f"{p1:.2f}/{p2:.2f}] | {card}")
-  profile_step(torch, lambda: render_fn(chunk_rays), "chunk")
-
-  del model, plain_model, plain_fn, outs, got, want, chunk_rays
+  del model, plain_model, outs, got, want, chunk_rays
   torch.cuda.empty_cache()
   phase_done("5 mip render")
 
@@ -4088,7 +3693,7 @@ def main() -> int:
   phase_done("6 zip render")
 
   # 7b. train slice
-  train_counts, _ = train_slice(torch, scene, card)
+  train_counts = train_slice(torch, scene, card)
   log(f"  K1 launches: mip render {launches}, train {train_counts}")
   phase_done("7b mip train")
 
@@ -4097,7 +3702,7 @@ def main() -> int:
   phase_done("7c confidence precompute")
 
   # 8. zip train slice
-  zip_counts, _ = zip_train_slice(torch, scene, card)
+  zip_counts = zip_train_slice(torch, scene, card)
   phase_done("8 zip train")
 
   # 9. the entry points

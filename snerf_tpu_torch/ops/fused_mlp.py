@@ -44,8 +44,8 @@ _MIN_SPLIT_ROWS = 2048
 _WAVES = 16               # wgrad blocks to aim for, in waves of 1 per SM
 # The bf16 wgrad's: the shorter its splits, the faster, down to the
 # 2,048-row floor; at 2,097,152 x 512 on an H100 it took 4.61, 3.82, 3.41
-# and 2.80 ms at 4, 16, 32 and 64 waves (python -m
-# snerf_tpu_torch.probes.k1_bf16). Its f32 partials then take 1 GiB there.
+# and 2.80 ms at 4, 16, 32 and 64 waves (one sweep of this constant).
+# Its f32 partials then take 1 GiB there.
 _WAVES_BF16 = 64
 
 
@@ -393,17 +393,16 @@ def fused_mlp_bwd_dgrad(dz, w_big, w_small, mask, out):
 
 
 def wgrad_splits(n: int, d: int, sm_count: int, dtype=torch.float32,
-                 waves: int = 0, m: int = 0):
+                 m: int = 0):
   """(rows_per_split, splits) of the wgrad kernel of `dtype`'s split of N
   for a [m, d] dW (m 0: d; an f32 entry layer's m = K): enough blocks for
-  `waves` (0: _WAVES, bf16 _WAVES_BF16) waves of one block per SM over its
+  _WAVES (bf16 _WAVES_BF16) waves of one block per SM over its
   output tiles, 128 x 128 (bf16: 128 x 256; 16 x 132 = 2,112 blocks is 33
   splits of the 64 f32 tiles at D = 1024, no partial wave), each split at
   least _MIN_SPLIT_ROWS rows unless N is shorter, a multiple of the
   kernel's k-depth (_BK, bf16 _BK_BF16), and at most 65,535 splits."""
   bf16 = dtype == torch.bfloat16
-  bk, default_waves = (_BK_BF16, _WAVES_BF16) if bf16 else (_BK, _WAVES)
-  waves = waves or default_waves
+  bk, waves = (_BK_BF16, _WAVES_BF16) if bf16 else (_BK, _WAVES)
   tiles = -(-(m or d) // 128) * (d // (_BF16_TILE_COLS if bf16 else 128))
   splits = -(-waves * sm_count // tiles)
   splits = max(1, min(splits, -(-n // _MIN_SPLIT_ROWS), 65535))
